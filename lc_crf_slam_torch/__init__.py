@@ -1,0 +1,14 @@
+"""lc_crf_slam_torch — the RGB-D SLAM pipeline in PyTorch, for NVIDIA Hopper.
+
+A port of `lc_crf_slam_tpu` (the JAX reference, which stays beside it and
+which the port's tests hold it to). It imports torch and numpy only:
+nothing of jax and nothing of the JAX package (`config.py` is a copy of
+the reference's dataclasses).
+
+Layout mirrors the reference:
+  geometry/  SE3 Lie ops, pinhole camera, Umeyama alignment
+  ops/       pyramid, FAST (+ CUDA kernel), keypoint selection, ORB, matching
+  models/    frame front-end, map state, motion-only BA, tracking, SLAMSystem
+  utils/     synthetic RGB-D worlds, TUM trajectory output
+  csrc/      CUDA C++ kernel sources; kernels/ builds and loads them
+"""

@@ -1,0 +1,96 @@
+"""Primitives whose semantics decide parity with the JAX reference.
+
+- `stable_topk`: `lax.top_k` breaks ties by the lower index; `torch.topk`
+  does not promise that (on [1,3,3,0,3], k=3, it returns [2,4,1] where
+  `lax.top_k` returns [1,2,4]). A stable descending sort does.
+- Drop-mode scatters: the reference writes with `.at[idx].set/add
+  (mode="drop")` and passes the capacity as the "no target" index. Torch's
+  indexed writes raise on an out-of-range index, so these helpers write
+  into a copy with one extra dump row and cut it off again. Negative
+  indices are dropped too (the reference never passes one to a drop-mode
+  write: JAX would wrap it).
+- Popcount of int32 words (descriptors are int32 bit-views of the
+  reference's uint32 words) as a SWAR reduction in int64.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def stable_topk(x: torch.Tensor, k: int):
+    """The k largest along the last axis, ties to the lower index, as
+    `lax.top_k`: returns (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def take_row(arr: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """arr[i] for a 0-d device index, without the host read that indexing
+    with a 0-d tensor makes."""
+    return arr.index_select(0, i.reshape(1).long())[0]
+
+
+def as_value(val, like: torch.Tensor) -> torch.Tensor:
+    """val (tensor or Python scalar) as a tensor of like's dtype and
+    device; a scalar becomes a device fill, not a host-to-device copy."""
+    if isinstance(val, torch.Tensor):
+        return val.to(dtype=like.dtype, device=like.device)
+    return torch.full((), val, dtype=like.dtype, device=like.device)
+
+
+def put_row(arr: torch.Tensor, i: torch.Tensor, val) -> torch.Tensor:
+    """A copy of arr with row i (0-d device index) replaced by val."""
+    v = as_value(val, arr)
+    return arr.index_copy(0, i.reshape(1).long(), v.expand(arr.shape[1:])[None])
+
+
+def _dump_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.where((idx >= 0) & (idx < n), idx, n).long()
+
+
+def _with_dump_row(arr: torch.Tensor) -> torch.Tensor:
+    return torch.cat([arr, arr.new_zeros((1,) + tuple(arr.shape[1:]))])
+
+
+def scatter_set(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """`arr.at[idx].set(val, mode="drop")` along axis 0. Which of several
+    writes to one index wins is unspecified, as in JAX."""
+    n = arr.shape[0]
+    out = _with_dump_row(arr)
+    out[_dump_index(idx, n)] = as_value(val, arr)
+    return out[:n]
+
+
+def scatter_add(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """`arr.at[idx].add(val, mode="drop")` along axis 0."""
+    n = arr.shape[0]
+    out = _with_dump_row(arr)
+    v = as_value(val, arr).expand((idx.shape[0],) + tuple(arr.shape[1:]))
+    out.index_put_((_dump_index(idx, n),), v, accumulate=True)
+    return out[:n]
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (read as its uint32 bit pattern), int32."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
+
+
+def words_to_int32(words64: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor with the same bits."""
+    return torch.where(words64 >= 2**31, words64 - 2**32, words64).to(torch.int32)
+
+
+def u32_to_i32(a) -> np.ndarray:
+    """numpy uint32 words -> their int32 bit-view (a writable copy)."""
+    return np.array(a, dtype=np.uint32, order="C").view(np.int32)
+
+
+def i32_to_u32(a) -> np.ndarray:
+    """numpy int32 bit-view -> the uint32 words (a writable copy)."""
+    return np.array(a, dtype=np.int32, order="C").view(np.uint32)

@@ -1,0 +1,56 @@
+"""State converters between the JAX reference and the port.
+
+The slice has no learned weights; its state is the map, the tracking
+state and the frame. These helpers turn a reference `MapState` /
+`TrackState` / `Frame` (any NamedTuple of arrays, read with `np.asarray`)
+into the port's tensors, and a port state back into numpy arrays, so a
+test can run the reference for a few frames, continue in the port, and
+compare the next step array by array. Descriptor words (uint32 in the
+reference) become int32 bit-views and back; bool and int32 stay as they
+are.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ._ops import i32_to_u32, u32_to_i32
+from .models.frame import Frame
+from .models.mapstate import MapState
+from .models.tracking import TrackState
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = u32_to_i32(a)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _convert(state, cls, device):
+    return cls(**{f: _to_tensor(getattr(state, f), device) for f in cls._fields})
+
+
+def map_to_torch(m, device: str | torch.device = "cpu") -> MapState:
+    return _convert(m, MapState, device)
+
+
+def track_to_torch(ts, device: str | torch.device = "cpu") -> TrackState:
+    return _convert(ts, TrackState, device)
+
+
+def frame_to_torch(frame, device: str | torch.device = "cpu") -> Frame:
+    return _convert(frame, Frame, device)
+
+
+def to_numpy(state) -> Dict[str, np.ndarray]:
+    """Port state -> {field: numpy array}, descriptor fields as uint32
+    words (the reference's layout)."""
+    out = {}
+    for f in state._fields:
+        a = getattr(state, f).detach().cpu().numpy()
+        out[f] = i32_to_u32(a) if "desc" in f else a
+    return out

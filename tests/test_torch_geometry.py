@@ -1,0 +1,90 @@
+"""Port geometry (lc_crf_slam_torch/geometry) against the JAX reference.
+
+Same inputs from a numpy seed through both; tolerance atol 1e-5 in
+float32 (a few ulps of O(1) rotation entries and sub-metre translations).
+Angles straddle the 5e-2 small-angle Taylor cutoff on both sides."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lc_crf_slam_tpu import config as ref_config
+from lc_crf_slam_tpu.geometry import align as ref_align
+from lc_crf_slam_tpu.geometry import camera as ref_camera
+from lc_crf_slam_tpu.geometry import se3 as ref_se3
+from lc_crf_slam_torch import config
+from lc_crf_slam_torch.geometry import align, camera, se3
+
+import torch_parity  # noqa: F401  (thread count)
+
+ATOL = 1e-5
+ANGLES = [0.0, 1e-5, 1e-3, 0.049, 0.0501, 0.3, 1.5, 3.0]
+
+
+def _twists(seed=0):
+    rng = np.random.default_rng(seed)
+    axes = rng.normal(size=(len(ANGLES), 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    w = axes * np.asarray(ANGLES)[:, None]
+    ups = rng.normal(0, 0.5, (len(ANGLES), 3))
+    return np.concatenate([ups, w], axis=1).astype(np.float32)
+
+
+def _close(a, b, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["exp_so3", "hat_so3"])
+def test_so3_maps(fn):
+    w = _twists()[:, 3:]
+    _close(getattr(ref_se3, fn)(jnp.asarray(w)), getattr(se3, fn)(torch.tensor(w)))
+
+
+def test_exp_se3_both_sides_of_taylor_cutoff():
+    xi = _twists()
+    _close(ref_se3.exp_se3(jnp.asarray(xi)), se3.exp_se3(torch.tensor(xi)))
+
+
+def test_log_so3_roundtrip():
+    R = np.asarray(ref_se3.exp_so3(jnp.asarray(_twists(1)[:, 3:])))
+    _close(ref_se3.log_so3(jnp.asarray(R)), se3.log_so3(torch.tensor(R)))
+
+
+def test_inverse_and_orthonormalize():
+    T = np.asarray(ref_se3.exp_se3(jnp.asarray(_twists(2))))
+    rng = np.random.default_rng(3)
+    T_noisy = T.copy()
+    T_noisy[:, :3, :3] += rng.normal(0, 1e-3, (len(T), 3, 3)).astype(np.float32)
+    _close(ref_se3.se3_inverse(jnp.asarray(T)), se3.se3_inverse(torch.tensor(T)))
+    _close(ref_se3.orthonormalize_se3(jnp.asarray(T_noisy)),
+           se3.orthonormalize_se3(torch.tensor(T_noisy)))
+
+
+def test_rotmat_to_quat():
+    R = np.asarray(ref_se3.exp_so3(jnp.asarray(_twists(4)[:, 3:])))
+    _close(ref_se3.rotmat_to_quat(jnp.asarray(R)), se3.rotmat_to_quat(torch.tensor(R)))
+
+
+@pytest.mark.parametrize("n_pts", [3, 50])
+def test_umeyama_batched(n_pts):
+    """Batched as pose_consensus calls it: (hypotheses, 3 points, 3)."""
+    rng = np.random.default_rng(5)
+    T = np.asarray(ref_se3.exp_se3(jnp.asarray(_twists(6))))
+    src = rng.normal(0, 1, (len(T), n_pts, 3)).astype(np.float32)
+    dst = (np.einsum("bij,bnj->bni", T[:, :3, :3], src) + T[:, None, :3, 3]
+           + rng.normal(0, 1e-3, src.shape)).astype(np.float32)
+    ref = ref_align.umeyama_alignment(jnp.asarray(src), jnp.asarray(dst))
+    out = align.umeyama_alignment(torch.tensor(src), torch.tensor(dst))
+    for a, b in zip(ref, out):
+        _close(a, b, atol=1e-4 if n_pts == 3 else ATOL)
+
+
+def test_pinhole_and_config_match_reference():
+    assert camera.Pinhole._fields == ref_camera.Pinhole._fields
+    assert camera.TUM3 == tuple(ref_camera.TUM3)
+    assert dataclasses.asdict(config.SLAMConfig()) == dataclasses.asdict(
+        ref_config.SLAMConfig())

@@ -1,0 +1,49 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Skips without a CUDA device (a CUDA kernel has no CPU mode).
+
+This file imports neither jax nor the JAX package, so it runs on the
+machine with the card, where jax is not installed; tests/conftest.py
+imports jax, so run it there without the conftest:
+
+    python3 -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lc_crf_slam_torch.ops import fast_kernel
+from lc_crf_slam_torch.ops.fast import fast_score_dual
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (134, 179), (200, 300), (7, 7)])
+@pytest.mark.parametrize("kind", ["random", "plateau"])
+def test_fast_kernel_bitwise_equals_plain(cuda, shape, kind):
+    """Same accumulation order, no multiply to contract: bitwise equal,
+    including NMS ties on plateau images and ragged tiles."""
+    rng = np.random.default_rng(sum(shape))
+    a = rng.random(shape) * 255 if kind == "random" else np.round(rng.random(shape) * 3) * 70
+    img = torch.tensor(a.astype(np.float32), device=cuda)
+    before = fast_kernel.launches
+    hi, lo = fast_kernel.fast_score_dual_nms(img, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert fast_kernel.launches == before + 1
+    ph, pl = fast_score_dual(img, 20.0, 7.0)
+    assert torch.equal(hi, ph) and torch.equal(lo, pl)
+
+
+@pytest.mark.cuda
+def test_fast_kernel_refuses_bad_input(cuda):
+    img = torch.zeros((32, 32), device=cuda)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_score_dual_cuda(img.double(), 20.0, 7.0)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_score_dual_cuda(img.t()[:, :16], 20.0, 7.0)

@@ -1,0 +1,49 @@
+"""The port runs without jax: in a fresh interpreter where `import jax`
+fails, every module of lc_crf_slam_torch imports, a SLAMSystem is built
+on the CPU and tracks two frames, and nothing of the JAX package
+(lc_crf_slam_tpu) was imported. (A subprocess, because conftest.py has
+already imported jax into this one.)"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)
+import lc_crf_slam_torch
+names = [m.name for m in pkgutil.walk_packages(lc_crf_slam_torch.__path__,
+                                               "lc_crf_slam_torch.")]
+for name in names:
+    importlib.import_module(name)
+from lc_crf_slam_torch.config import LoopConfig, MapConfig, ORBConfig, SLAMConfig
+from lc_crf_slam_torch.geometry.camera import Pinhole
+from lc_crf_slam_torch.models.system import SLAMSystem
+from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+cam = Pinhole(fx=134.0, fy=135.0, cx=80.0, cy=60.0, width=160, height=120, bf=10.0)
+cfg = SLAMConfig(loop=LoopConfig(enabled=False),
+                 orb=ORBConfig(max_keypoints=256, n_levels=4),
+                 map=MapConfig(max_points=4096, max_keyframes=8, max_features=256))
+slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False, device="cpu")
+world = SyntheticWorld(cam=cam, n_frames=2, n_static=200, n_dynamic=0, seed=1)
+for k in range(2):
+    f = world.frame(k, render=True)
+    slam.track_rgbd(f.image, f.depth_image, f.timestamp)
+assert slam.get_trajectory()[1].shape == (2, 4, 4)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("OK", len(names))
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK"), proc.stdout
