@@ -7,14 +7,24 @@
 3. Holds the kernel bit for bit against its plain PyTorch version on the
    8 pyramid levels of a rendered TUM3 frame and on two random images
    (200x300, not a multiple of the tile; 256x256), and times both with
-   CUDA events (median of 25 launches).
-4. Runs the RGB-D tracking slice at full width: SLAMSystem.track_rgbd on
-   31 rendered 640x480 frames of a 600-point static world, with the
-   default map capacities (32768 points, 320 keyframes, 1024 features).
-   Checks that every frame's FAST went through the kernel, that tracking
-   never got lost, that keyframes were made, and that the ATE against
-   ground truth (Umeyama-aligned) is under 1 cm.
-5. Prints the kernel report as one JSON line, the card line again, and
+   CUDA events (median of 20 batches of 10 calls).
+4. Tracking phase: SLAMSystem.track_rgbd with mapping and the CRF off on
+   31 rendered 640x480 frames of a 600-point static world, default map
+   capacities (32768 points, 320 keyframes, 1024 features). Checks that
+   every frame's FAST went through the kernel, that tracking never got
+   lost, that keyframes were made, and that the ATE against ground truth
+   (Umeyama-aligned) is under 1 cm.
+5. Dynamic phase: the per-frame dynamic pipeline (mapping and the CRF
+   on, loop closing off) on bench.py's billboard world (a rigid textured
+   mover crossing a 1400-point static scene), frames 0-30 at 640x480,
+   default capacities. Checks FAST launches = 8 x 31, no frame lost,
+   >= 2 keyframes, one counted mapping_step per keyframe and one counted
+   crf_step per frame after the first, finite poses, ATE < 2 cm, and
+   1 host sync on a non-keyframe frame (torch's sync debug mode). Prints
+   the reference's ATE on the same frames beside the port's, ms/frame
+   (median after the first 3, keyframe and non-keyframe frames apart),
+   host syncs, peak device memory, and the last frame's CRF counts.
+6. Prints the kernel report as one JSON line, the card line again, and
    last `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the exit code is then non-zero. Without a CUDA
@@ -37,6 +47,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 31
 ATE_BAR_M = 0.01
+DYN_FRAMES = 31
+DYN_ATE_BAR_M = 0.02      # the reference's bar for its full pipeline
+# The JAX reference on the same 31 frames, measured on the CPU with
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
+#       -m slow -k full_size -s
+# (this script imports no jax, so the number is a constant here)
+REF_DYN_ATE_M = 0.00169054956667069
 
 
 def card_line() -> str:
@@ -108,6 +125,99 @@ def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray) -> float:
     return float(torch.sqrt(torch.mean(err ** 2)))
 
 
+def drive(slam, frames, counted):
+    """Every frame through `slam.track_rgbd`, each timed to a synchronize:
+    (ms per frame, {frame: host syncs} for the frames in `counted`, counted
+    in torch's sync debug mode, FAST kernel launches, peak device MiB)."""
+    from lc_crf_slam_torch.ops import fast_kernel
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_kernel.reset_launches()
+    frame_ms, syncs = [], {}
+    for k, f in enumerate(frames):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn" if k in counted else "default")
+            t0 = time.perf_counter()
+            slam.track_rgbd(f.image, f.depth_image, f.timestamp)
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if k in counted:
+            syncs[k] = sum("synchronizing CUDA operation" in str(w.message)
+                           for w in caught)
+    return (frame_ms, syncs, fast_kernel.launches,
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def dynamic_phase(cam) -> int:
+    """The per-frame dynamic pipeline at full width (see the module
+    docstring, step 5); returns the FAST launches of the phase."""
+    from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(cam=cam, n_frames=60, n_static=1400, n_dynamic=0,
+                           seed=7, trajectory="line", billboard=True,
+                           bb_speed=0.04)
+    frames = [world.frame(k, render=True) for k in range(DYN_FRAMES)]
+    cfg = SLAMConfig(loop=LoopConfig(enabled=False))
+    slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
+                      device="cuda")
+    # from the 4th frame on, count every frame's host syncs
+    frame_ms, syncs, launches, peak_mb = drive(slam, frames, range(3, DYN_FRAMES))
+
+    slam.flush_stats()
+    _, poses = slam.get_trajectory()
+    _, gt = world.groundtruth()
+    if poses.shape != (DYN_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"dynamic phase: bad trajectory, shape {poses.shape}")
+    ate = ate_rmse(poses, gt[:DYN_FRAMES])
+    statuses = [s.get("status", 1) for s in slam.stats]
+    is_kf = [bool(s.get("need_kf")) for s in slam.stats]
+    n_kfs = int(slam.map.n_kfs)
+    kf_ms = [t for t, kf in zip(frame_ms[3:], is_kf[3:]) if kf]
+    other_ms = [t for t, kf in zip(frame_ms[3:], is_kf[3:]) if not kf]
+    kf_at = [k for k in range(3, DYN_FRAMES) if is_kf[k]]
+    other_at = [k for k in range(3, DYN_FRAMES) if not is_kf[k]]
+    last = slam.stats[-1]
+    print(f"dynamic: {DYN_FRAMES} frames, median {statistics.median(frame_ms[3:]):.2f} "
+          f"ms/frame after the first 3 (keyframe frames {statistics.median(kf_ms):.2f} "
+          f"over {len(kf_ms)}, other frames {statistics.median(other_ms):.2f} over "
+          f"{len(other_ms)}), first frame {frame_ms[0]:.1f} ms")
+    print(f"dynamic: ATE {ate:.5f} m (JAX reference on the same frames, CPU: "
+          f"{REF_DYN_ATE_M:.5f} m), keyframes {n_kfs}, lost frames "
+          f"{statuses.count(2)}, mapping_step calls {slam.n_mapping_steps}, "
+          f"crf_step calls {slam.n_crf_steps}, FAST launches {launches}, peak "
+          f"memory {peak_mb:.0f} MiB")
+    print(f"dynamic: host syncs on keyframe frame {kf_at[0]}: {syncs[kf_at[0]]}, on "
+          f"non-keyframe frame {other_at[0]}: {syncs[other_at[0]]}; per frame "
+          f"from the 4th {list(syncs.values())}")
+    print(f"dynamic: last frame n_dynamic {last['n_dynamic']}, n_tracks "
+          f"{last['crf_tracks']}")
+    if launches != cfg.orb.n_levels * DYN_FRAMES:
+        raise AssertionError(f"dynamic phase: FAST kernel launched {launches} "
+                             f"times, expected {cfg.orb.n_levels * DYN_FRAMES}")
+    if 2 in statuses:
+        raise AssertionError(f"dynamic phase: tracking lost: statuses {statuses}")
+    if n_kfs < 2:
+        raise AssertionError(f"dynamic phase: only {n_kfs} keyframes")
+    if slam.n_mapping_steps != sum(is_kf) or slam.n_mapping_steps != len(slam.kf_log):
+        raise AssertionError(
+            f"dynamic phase: {slam.n_mapping_steps} mapping_step calls for "
+            f"{sum(is_kf)} keyframes")
+    if slam.n_crf_steps != DYN_FRAMES - 1:
+        raise AssertionError(f"dynamic phase: {slam.n_crf_steps} crf_step calls "
+                             f"for {DYN_FRAMES - 1} frames after the first")
+    if syncs[other_at[0]] != 1:
+        raise AssertionError(f"dynamic phase: {syncs[other_at[0]]} host syncs on "
+                             f"non-keyframe frame {other_at[0]}, expected 1")
+    if not ate < DYN_ATE_BAR_M:
+        raise AssertionError(f"dynamic phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -117,7 +227,6 @@ def main() -> int:
     from lc_crf_slam_torch.geometry.camera import TUM3
     from lc_crf_slam_torch.kernels import build
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.ops.pyramid import build_pyramid
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 
@@ -152,28 +261,9 @@ def main() -> int:
     # ---- the tracking slice at full width ----------------------------------
     slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False,
                       device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
-    frame_ms, syncs = [], []
-    for k, f in enumerate(frames):
-        # frames 10-11 count the host<->device synchronisations a frame
-        # makes (torch's sync debug mode; the design has one: the
-        # keyframe decision fetch)
-        counted = k in (10, 11)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn" if counted else "default")
-            t0 = time.perf_counter()
-            slam.track_rgbd(f.image, f.depth_image, f.timestamp)
-            torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if counted:
-            syncs.append(sum("synchronizing CUDA operation" in str(w.message)
-                             for w in caught))
-    fast_launches = fast_kernel.launches
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # frames 10-11 count their host syncs (the design has one: the
+    # keyframe decision fetch)
+    frame_ms, syncs, fast_launches, peak_mb = drive(slam, frames, (10, 11))
 
     slam.flush_stats()
     _, poses = slam.get_trajectory()
@@ -190,7 +280,7 @@ def main() -> int:
           f"ATE {ate:.5f} m, keyframes {n_kfs}, mean inliers "
           f"{np.mean(inliers):.1f}, lost frames {statuses.count(2)}, "
           f"FAST launches {fast_launches}, peak memory {peak_mb:.0f} MiB, "
-          f"host syncs per frame {syncs}")
+          f"host syncs per frame {list(syncs.values())}")
     if fast_launches != cfg.orb.n_levels * N_FRAMES:
         raise AssertionError(
             f"FAST kernel launched {fast_launches} times, expected "
@@ -202,6 +292,9 @@ def main() -> int:
     if not ate < ATE_BAR_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_BAR_M} m")
 
+    # ---- the per-frame dynamic pipeline at full width ----------------------
+    dyn_launches = dynamic_phase(cam)
+
     # ---- report ------------------------------------------------------------
     level_rows = [r for r in rows if r[0].startswith("level")]
     report = {"kernels": [{
@@ -209,7 +302,7 @@ def main() -> int:
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_nms.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        "launches": fast_launches,
+        "launches": fast_launches + dyn_launches,
         "max_abs_err": max(r[2] for r in rows),
         # one frame's FAST: the sum over the 8 pyramid level shapes
         "ms": sum(r[3] for r in level_rows),

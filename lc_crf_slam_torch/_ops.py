@@ -8,7 +8,7 @@
   indexed writes raise on an out-of-range index, so these helpers write
   into a copy with one extra dump row and cut it off again. Negative
   indices are dropped too (the reference never passes one to a drop-mode
-  write: JAX would wrap it).
+  write: JAX would wrap it). `scatter_min` is `.at[idx].min(mode="drop")`.
 - Popcount of int32 words (descriptors are int32 bit-views of the
   reference's uint32 words) as a SWAR reduction in int64.
 """
@@ -64,12 +64,24 @@ def scatter_set(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
 
 
 def scatter_add(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """`arr.at[idx].add(val, mode="drop")` along axis 0."""
+    """`arr.at[idx].add(val, mode="drop")` along axis 0, by `index_add_`:
+    atomic adds on the card, exact for the integer counts the callers
+    add. (`index_put_(accumulate=True)` sorts the indices and adds each
+    index's duplicates one after another, and every dropped entry lands
+    on the one dump row: 300k of them took ~30 ms on an H100.)"""
     n = arr.shape[0]
     out = _with_dump_row(arr)
     v = as_value(val, arr).expand((idx.shape[0],) + tuple(arr.shape[1:]))
-    out.index_put_((_dump_index(idx, n),), v, accumulate=True)
-    return out[:n]
+    return out.index_add_(0, _dump_index(idx, n), v)[:n]
+
+
+def scatter_min(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """`arr.at[idx].min(val, mode="drop")` along axis 0 of a 1-D arr."""
+    n = arr.shape[0]
+    out = _with_dump_row(arr)
+    v = as_value(val, arr).expand(idx.shape)
+    return out.scatter_reduce_(0, _dump_index(idx, n), v, "amin",
+                               include_self=True)[:n]
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """State converters between the JAX reference and the port.
 
-The slice has no learned weights; its state is the map, the tracking
+The system has no learned weights; its state is the map, the tracking
 state and the frame. These helpers turn a reference `MapState` /
-`TrackState` / `Frame` (any NamedTuple of arrays, read with `np.asarray`)
-into the port's tensors, and a port state back into numpy arrays, so a
-test can run the reference for a few frames, continue in the port, and
-compare the next step array by array. Descriptor words (uint32 in the
-reference) become int32 bit-views and back; bool and int32 stay as they
-are.
+`TrackState` / `Frame` / `BAProblem` (any NamedTuple of arrays, read
+with `np.asarray`; a map state at any point of the pipeline, mapping
+included) into the port's tensors, and a port state back into numpy
+arrays, so a test can run the reference for a few frames, continue in
+the port, and compare the next step array by array. Descriptor words
+(uint32 in the reference) become int32 bit-views and back; bool and
+int32 stay as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ._ops import i32_to_u32, u32_to_i32
 from .models.frame import Frame
 from .models.mapstate import MapState
 from .models.tracking import TrackState
+from .ops.schur import BAProblem
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -44,6 +46,10 @@ def track_to_torch(ts, device: str | torch.device = "cpu") -> TrackState:
 
 def frame_to_torch(frame, device: str | torch.device = "cpu") -> Frame:
     return _convert(frame, Frame, device)
+
+
+def ba_problem_to_torch(prob, device: str | torch.device = "cpu") -> BAProblem:
+    return _convert(prob, BAProblem, device)
 
 
 def to_numpy(state) -> Dict[str, np.ndarray]:

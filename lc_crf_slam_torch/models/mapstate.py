@@ -225,6 +225,27 @@ def add_points(
     return m, ids
 
 
+def incidence_matrix(m: MapState) -> torch.Tensor:
+    """(F, P) float32 keyframe-point incidence from kf_obs (alive rows
+    only), 0/1."""
+    F, K = m.kf_obs.shape
+    P = m.capacity_points
+    cols = torch.where((m.kf_obs >= 0) & m.kf_valid & m.kf_alive[:, None],
+                       m.kf_obs, P).long()
+    A = torch.zeros((F, P + 1), dtype=torch.float32, device=cols.device)
+    A.scatter_(1, cols, 1.0)
+    return A[:, :P]
+
+
+def covisibility(m: MapState) -> torch.Tensor:
+    """(F, F) shared-point counts, diagonal zeroed (one matmul in place of
+    KeyFrame::UpdateConnections). Exact: counts stay far below 2**24 and
+    the port keeps TF32 off."""
+    A = incidence_matrix(m)
+    W = A @ A.T
+    return W.fill_diagonal_(0.0)
+
+
 def near_dynamic_envelope(m: MapState, xyz: torch.Tensor, dyn_threshold: float,
                           sigma: float) -> torch.Tensor:
     """(Q,) bool: query positions within `sigma` of a slot labelled

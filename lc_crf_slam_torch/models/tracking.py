@@ -31,11 +31,10 @@ from ..ops.match import (
     rotation_consistency,
 )
 from .ba import consensus_weights, pose_consensus, pose_optimize
+from .capacities import LOCAL_POINTS
 from .crf import masked_median
 from .frame import Frame
 from .mapstate import MapState, add_keyframe, add_points, near_dynamic_envelope
-
-LOCAL_POINTS = 4096  # fixed capacity of the tracked local-map window
 
 # (p (N,) sampling weights, n_hypotheses) -> (hyp_idx (n_hyp, 3), audit_u (N,))
 Sampler = Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
@@ -430,14 +429,20 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
 def insert_keyframe(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
                     frame: Frame, obs: torch.Tensor, timestamp: torch.Tensor,
                     near_map: torch.Tensor | None = None,
+                    flow_dyn: torch.Tensor | None = None,
                     ) -> Tuple[MapState, TrackState]:
     """CreateNewKeyFrame: insert the KF and spawn map points from depth for
     unmatched keypoints (dynamic-envelope veto, per-cell quota, then the
-    nearest-first budget). `near_map` vetoes duplicates of existing points."""
+    nearest-first budget). `near_map` vetoes duplicates of existing points;
+    `flow_dyn` vetoes keypoints whose optical flow departs from the rigid
+    egomotion, and condemns them (-2) so triangulation cannot take them
+    either."""
     Twc = se3_inverse(ts.Tcw)
     cand = frame.valid & (frame.depth > 0) & (obs < 0)
     if near_map is not None:
         cand &= ~near_map
+    if flow_dyn is not None:
+        cand &= ~flow_dyn
     pw = _unproject_world(cam, Twc, frame.uv, frame.depth)
     cand &= ~near_dynamic_envelope(
         m, pw, cfg.crf.dynamic_threshold, cfg.crf.spatial_sigma)
@@ -474,6 +479,8 @@ def insert_keyframe(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
         m.p_last_seen, torch.where(new_ids >= 0, new_ids, m.capacity_points),
         ts.frame_idx))
     obs_all = torch.where(obs >= 0, obs, new_ids)
+    if flow_dyn is not None:
+        obs_all = torch.where(flow_dyn & (obs_all == -1), -2, obs_all)
     m, kf_idx = add_keyframe(m, frame, ts.Tcw, timestamp, obs_all)
     # nRefMatches counts the new reference KF's well-observed points only
     min_obs = torch.where(m.n_kfs <= 2, 2, 3)

@@ -1,0 +1,221 @@
+"""Per-stage time and op count of the per-frame dynamic pipeline.
+
+    python -m lc_crf_slam_torch.utils.stage_profile [--frames 31]
+
+Runs `SLAMSystem.track_rgbd` with mapping and the CRF on (loop closing
+off) over bench.py's billboard world at TUM3 640×480 and default
+capacities, on the CUDA device, and prints one row per stage: calls,
+mean ms per call and per frame (a synchronize on both sides of every
+call; frames from the 4th on), and the aten ops one call dispatches
+(counted in a second, untimed pass over the same frames). A stage's
+figures include the stages it calls. A third pass traces frames 10-14
+with torch.profiler: device busy ms and kernels per frame, and the
+device's idle share of the unprofiled frame time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import json
+import sys
+import time
+from typing import Dict, List
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..models import mapping, system
+
+# (module, function, row name), outermost first
+STAGES = (
+    (system, "build_frame", "build_frame"),
+    (system, "track_step", "track_step"),
+    (system, "flow_evidence", "flow_evidence"),
+    (system, "crf_step", "crf_step"),
+    (system, "spawn_flow_dyn", "spawn_flow_dyn"),
+    (system, "insert_keyframe", "insert_keyframe"),
+    (system, "relocalize", "relocalize"),
+    (system, "mapping_step", "mapping_step"),
+    (mapping, "create_new_points", "mapping: triangulate"),
+    (mapping, "fuse_duplicates", "mapping: fuse (x3)"),
+    (mapping, "refresh_point_stats", "mapping: refresh"),
+    (mapping, "local_bundle_adjustment", "mapping: local BA"),
+    (mapping, "cull_points", "mapping: culls"),
+    (mapping, "cull_keyframes", "mapping: culls"),
+)
+
+
+class _OpCounter(TorchDispatchMode):
+    """Counts every aten op dispatched, into each stage on the stack."""
+
+    def __init__(self, stack: List[str], counts: Dict[str, int]):
+        super().__init__()
+        self.stack, self.counts = stack, counts
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        for name in set(self.stack):
+            self.counts[name] += 1
+        self.counts["(frame)"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _instrumented(on_call):
+    """Wrap every stage function; on_call(name, fn, args, kwargs) runs it."""
+    saved = []
+    for mod, fn_name, row in STAGES:
+        fn = getattr(mod, fn_name)
+        saved.append((mod, fn_name, fn))
+
+        def wrapped(*args, _fn=fn, _row=row, **kwargs):
+            return on_call(_row, _fn, args, kwargs)
+        setattr(mod, fn_name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def profile(slam_factory, frames, skip: int = 3):
+    """Rows {stage: (calls, ms per call, ms per frame, ops per call)} over
+    `frames` [(gray, depth, t)], timed from frame `skip` on; the row
+    "(frame)" is the whole `track_rgbd` call under the same
+    synchronisation."""
+    slam = slam_factory()
+    sync = torch.cuda.synchronize if slam.device.type == "cuda" else (lambda: None)
+    ms = collections.defaultdict(float)
+    calls = collections.defaultdict(int)
+    timing = {"on": False}
+
+    def timed(row, fn, args, kwargs):
+        if not timing["on"]:
+            return fn(*args, **kwargs)
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        ms[row] += (time.perf_counter() - t0) * 1e3
+        calls[row] += 1
+        return out
+
+    frame_ms = []
+    with _instrumented(timed):
+        for k, (gray, depth, t) in enumerate(frames):
+            timing["on"] = k >= skip
+            sync()
+            t0 = time.perf_counter()
+            slam.track_rgbd(gray, depth, t)
+            sync()
+            if k >= skip:
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+
+    stack: List[str] = []
+    ops = collections.defaultdict(int)
+    op_calls = collections.defaultdict(int)
+
+    def counted(row, fn, args, kwargs):
+        stack.append(row)
+        op_calls[row] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stack.pop()
+
+    slam = slam_factory()
+    with _instrumented(counted):
+        for k, (gray, depth, t) in enumerate(frames):
+            if k == skip:
+                ops.clear()
+                op_calls.clear()
+            if k >= skip:
+                with _OpCounter(stack, ops):
+                    slam.track_rgbd(gray, depth, t)
+            else:
+                slam.track_rgbd(gray, depth, t)
+    n = max(len(frames) - skip, 1)
+    rows = {}
+    for _, _, row in STAGES:
+        if calls[row]:
+            rows[row] = (calls[row], ms[row] / calls[row], ms[row] / n,
+                         ops[row] / max(op_calls[row], 1))
+    rows["(frame)"] = (n, sum(frame_ms) / n, sum(frame_ms) / n, ops["(frame)"] / n)
+    return rows
+
+
+def device_busy(slam_factory, frames, first: int = 10, n: int = 5, top: int = 10):
+    """(busy device ms per frame, kernels per frame, profiled wall ms per
+    frame, the `top` kernels by device time as (name, ms per frame,
+    launches per frame)) over frames first..first+n-1, traced by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    slam = slam_factory()
+    for gray, depth, t in frames[:first]:
+        slam.track_rgbd(gray, depth, t)
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for gray, depth, t in frames[first:first + n]:
+            slam.track_rgbd(gray, depth, t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    heavy = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in heavy]
+    return busy_ms / n, sum(e.count for e in dev) / n, wall_ms / n, kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=31)
+    ap.add_argument("--json", default=None, help="also write the rows here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("stage_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from ..config import LoopConfig, SLAMConfig
+    from ..geometry.camera import TUM3
+    from ..utils.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(cam=TUM3, n_frames=60, n_static=1400, n_dynamic=0, seed=7,
+                           trajectory="line", billboard=True, bb_speed=0.04)
+    frames = []
+    for k in range(args.frames):
+        f = world.frame(k, render=True)
+        frames.append((f.image, f.depth_image, f.timestamp))
+    cfg = SLAMConfig(loop=LoopConfig(enabled=False))
+
+    def make():
+        return system.SLAMSystem(TUM3, cfg, enable_mapping=True, enable_crf=True,
+                                 device="cuda")
+
+    rows = profile(make, frames)
+    busy, kernels, traced, heavy = device_busy(make, frames)
+    frame_ms = rows["(frame)"][1]
+    print(f"{torch.cuda.get_device_name(0)}, {args.frames} frames, stages from frame 4")
+    print(f"frames 10-14 traced: device busy {busy:.2f} ms/frame, {kernels:.0f} "
+          f"kernels/frame, profiled wall {traced:.2f} ms/frame; idle share "
+          f"{1 - busy / traced:.3f} profiled, {1 - busy / frame_ms:.3f} of the "
+          f"unprofiled {frame_ms:.2f} ms/frame")
+    print("heaviest device kernels, frames 10-14 (ms/frame, launches/frame):")
+    for name, k_ms, k_n in heavy:
+        print(f"  {k_ms:8.3f} {k_n:8.1f}  {name[:110]}")
+    print(f"{'stage':24s} {'calls':>6s} {'ms/call':>10s} {'ms/frame':>10s} {'ops/call':>10s}")
+    for row, (c, per_call, per_frame, n_ops) in rows.items():
+        print(f"{row:24s} {c:6d} {per_call:10.2f} {per_frame:10.2f} {n_ops:10.0f}")
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump({"device": torch.cuda.get_device_name(0), "rows": rows,
+                       "busy_ms": busy, "kernels": kernels, "traced_ms": traced,
+                       "heaviest": heavy}, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

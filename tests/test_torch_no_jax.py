@@ -1,8 +1,10 @@
 """The port runs without jax: in a fresh interpreter where `import jax`
-fails, every module of lc_crf_slam_torch imports, a SLAMSystem is built
-on the CPU and tracks two frames, and nothing of the JAX package
-(lc_crf_slam_tpu) was imported. (A subprocess, because conftest.py has
-already imported jax into this one.)"""
+fails, every module of lc_crf_slam_torch imports, a SLAMSystem with
+mapping and the CRF on is built on the CPU and tracks four frames and a
+black one (keyframes, mapping passes, the flow chain, a relocalisation
+attempt), and nothing of the JAX package (lc_crf_slam_tpu) was imported.
+(A subprocess, because conftest.py has already imported jax into this
+one.)"""
 
 import os
 import subprocess
@@ -21,20 +23,28 @@ names = [m.name for m in pkgutil.walk_packages(lc_crf_slam_torch.__path__,
                                                "lc_crf_slam_torch.")]
 for name in names:
     importlib.import_module(name)
-from lc_crf_slam_torch.config import LoopConfig, MapConfig, ORBConfig, SLAMConfig
+from lc_crf_slam_torch.config import (LoopConfig, MapConfig, ORBConfig, SLAMConfig,
+                                      TrackingConfig)
 from lc_crf_slam_torch.geometry.camera import Pinhole
 from lc_crf_slam_torch.models.system import SLAMSystem
 from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 cam = Pinhole(fx=134.0, fy=135.0, cx=80.0, cy=60.0, width=160, height=120, bf=10.0)
 cfg = SLAMConfig(loop=LoopConfig(enabled=False),
                  orb=ORBConfig(max_keypoints=256, n_levels=4),
-                 map=MapConfig(max_points=4096, max_keyframes=8, max_features=256))
-slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False, device="cpu")
-world = SyntheticWorld(cam=cam, n_frames=2, n_static=200, n_dynamic=0, seed=1)
-for k in range(2):
-    f = world.frame(k, render=True)
-    slam.track_rgbd(f.image, f.depth_image, f.timestamp)
-assert slam.get_trajectory()[1].shape == (2, 4, 4)
+                 map=MapConfig(max_points=4096, max_keyframes=32, max_features=256),
+                 tracking=TrackingConfig(max_frames_between_kf=1, min_frames_between_kf=0))
+# mapping, the CRF chain and (on the black frame, lost) relocalisation
+slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
+world = SyntheticWorld(cam=cam, n_frames=4, n_static=200, n_dynamic=0, seed=1)
+for k in range(5):
+    f = world.frame(min(k, 3), render=True)
+    img, dep = (f.image, f.depth_image) if k < 4 else (0 * f.image, 0 * f.depth_image)
+    slam.track_rgbd(img, dep, 0.1 * k)
+slam.flush_stats()
+assert slam.get_trajectory()[1].shape == (5, 4, 4)
+assert slam.n_mapping_steps >= 1 and slam.n_crf_steps == 4, (slam.n_mapping_steps,
+                                                              slam.n_crf_steps)
+assert slam.stats[-1]["status"] == 2 and int(slam.map.n_kfs) >= 2
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

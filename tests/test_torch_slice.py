@@ -98,9 +98,20 @@ def test_cuda_device_required_by_default():
 
 @pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion"])
 def test_unported_options_raise(what):
-    cfg = config.SLAMConfig(loop=config.LoopConfig(enabled=what == "loop"))
+    """What the port does not run yet raises: mapping's loop-closing fuse
+    (`fuse_duplicates(loop_mode=True)`), loop closing (with the CRF and
+    mapping on, and with both off), the "direct" descriptor, distortion."""
+    if what == "mapping":
+        from lc_crf_slam_torch.models.mapping import fuse_duplicates
+        from lc_crf_slam_torch.models.mapstate import empty_map
+
+        m = empty_map(SLICE_CFG, "cpu")
+        with pytest.raises(NotImplementedError):
+            fuse_duplicates(SLICE_CFG, CAM, m, torch.tensor(0), loop_mode=True)
+        return
+    cfg = config.SLAMConfig(loop=config.LoopConfig(enabled=what in ("loop", "crf")))
     cam = CAM
-    kw = dict(enable_mapping=what == "mapping", enable_crf=what == "crf")
+    kw = dict(enable_mapping=what == "crf", enable_crf=what == "crf")
     if what == "direct":
         cfg = cfg.replace(orb=config.ORBConfig(descriptor_variant="direct"))
     if what == "distortion":

@@ -48,3 +48,34 @@ def reference_consensus_sampler(frame_idx: int):
                 torch.from_numpy(np.array(u)).to(p.device))
 
     return sampler
+
+
+def use_reference_draws(port) -> None:
+    """Make a port SLAMSystem draw what the reference SLAMSystem draws:
+    the audit's per-frame keys, and the relocalisation keys split off
+    PRNGKey(7) one attempt at a time."""
+    state = {"key": jax.random.PRNGKey(7)}
+
+    def reloc_sampler():
+        state["key"], sub = jax.random.split(state["key"])
+        return reference_pnp_sampler(sub, batched=True)
+
+    port._sampler = lambda: reference_consensus_sampler(int(port.ts.frame_idx))
+    port._reloc_sampler = reloc_sampler
+
+
+def reference_pnp_sampler(key, batched: bool = False):
+    """A port `PnPSampler` that makes the reference pnp_ransac's draws
+    (`randint(key, (n_hyp, 6), 0, max(n_valid, 1))`); `batched`: one key
+    per candidate from `split(key, n)`, as relocalize splits its key."""
+    from lc_crf_slam_tpu.ops.pnp import SAMPLE
+
+    def sampler(n_valid: torch.Tensor, n_hyp: int):
+        nv = np.atleast_1d(n_valid.cpu().numpy())
+        keys = jax.random.split(key, len(nv)) if batched else [key]
+        out = np.stack([np.asarray(jax.random.randint(
+            k, (n_hyp, SAMPLE), 0, max(int(n), 1))) for k, n in zip(keys, nv)])
+        out = out if batched else out[0]
+        return torch.from_numpy(out.astype(np.int64)).to(n_valid.device)
+
+    return sampler
