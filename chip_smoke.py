@@ -3,28 +3,39 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and the torch build.
-2. Builds the FAST+NMS CUDA kernel from lc_crf_slam_torch/csrc/ (nvcc).
-3. Holds the kernel bit for bit against its plain PyTorch version on the
-   8 pyramid levels of a rendered TUM3 frame and on two random images
-   (200x300, not a multiple of the tile; 256x256), and times both with
-   CUDA events (median of 20 batches of 10 calls).
+2. Builds both FAST CUDA kernels from lc_crf_slam_torch/csrc/ (one nvcc
+   process per source, started together).
+3. Holds each kernel against its plain PyTorch version and times both
+   with CUDA events:
+   - `fast_nms_dual` (both NMS'd score maps of one level): bitwise on the
+     8 pyramid levels of a rendered TUM3 frame and on two random images
+     (200x300, not a multiple of the tile; 256x256);
+   - `fast_cell_best` (FAST + NMS + best corner per 16-px cell, all levels
+     of all frames of a batch in one launch): `best` bitwise, `y` and `x`
+     exact, at B=1 (the 8 levels of a rendered frame) and at B=15 (a
+     chunk of rendered frames).
 4. Tracking phase: SLAMSystem.track_rgbd with mapping and the CRF off on
    31 rendered 640x480 frames of a 600-point static world, default map
-   capacities (32768 points, 320 keyframes, 1024 features). Checks that
-   every frame's FAST went through the kernel, that tracking never got
-   lost, that keyframes were made, and that the ATE against ground truth
-   (Umeyama-aligned) is under 1 cm.
-5. Dynamic phase: the per-frame dynamic pipeline (mapping and the CRF
-   on, loop closing off) on bench.py's billboard world (a rigid textured
-   mover crossing a 1400-point static scene), frames 0-30 at 640x480,
-   default capacities. Checks FAST launches = 8 x 31, no frame lost,
-   >= 2 keyframes, one counted mapping_step per keyframe and one counted
-   crf_step per frame after the first, finite poses, ATE < 2 cm, and
-   1 host sync on a non-keyframe frame (torch's sync debug mode). Prints
-   the reference's ATE on the same frames beside the port's, ms/frame
-   (median after the first 3, keyframe and non-keyframe frames apart),
-   host syncs, peak device memory, and the last frame's CRF counts.
-6. Prints the kernel report as one JSON line, the card line again, and
+   capacities (32768 points, 320 keyframes, 1024 features). Checks one
+   fused FAST launch per frame, no lost frame, keyframes made, ATE < 1 cm.
+5. Dynamic phase: the per-frame dynamic pipeline (mapping and the CRF on,
+   loop closing off) on bench.py's billboard world (a rigid textured
+   mover crossing a 1400-point static scene), frames 0-30. Checks one
+   fused launch per frame, no frame lost, >= 2 keyframes, one mapping_step
+   per keyframe, one crf_step per frame after the first, ATE < 2 cm, and
+   1 host sync on a non-keyframe frame (torch's sync debug mode).
+6. Sequence phase: the chunked throughput path on the same frames with the
+   default SLAMConfig (loop detection on):
+   `SLAMSystem.track_sequence(grays, depths, timestamps, chunk=15)`.
+   Checks 0 lost frames, ATE < 2 cm, >= 2 keyframes, one mapping_step and
+   one detect_loop per in-chunk keyframe, one crf_step per chunk,
+   1 + chunks fused launches, and at most frames + 1 host syncs inside a
+   chunk. Prints ms/frame over the 30 chunked frames beside the dynamic
+   phase's, the seq_phases split and peak memory.
+   In every phase the first frame's keypoints are also selected from the
+   map kernel's score maps (`frame.score_maps`, 8 launches) and must
+   equal the fused path's.
+7. Prints the kernel report as one JSON line, the card line again, and
    last `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the exit code is then non-zero. Without a CUDA
@@ -49,11 +60,23 @@ N_FRAMES = 31
 ATE_BAR_M = 0.01
 DYN_FRAMES = 31
 DYN_ATE_BAR_M = 0.02      # the reference's bar for its full pipeline
+SEQ_CHUNK = 15
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
 # (this script imports no jax, so the number is a constant here)
 REF_DYN_ATE_M = 0.00169054956667069
+
+# The card's published peaks (H100 SXM data sheet): memory rate, and
+# float32 rate outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+# float32 operations FAST + NMS needs per pixel, as the plain version does
+# them: per threshold 2 (I +- t) + 16 circle pixels x (2 compares, 2 x 2
+# subtractions, 2 adds) + 3 (arc select, max), then 10 for the 3x3 NMS;
+# the cell reduction adds 2 compares per pixel and threshold.
+OPS_PER_PIXEL_MAPS = 2 * (2 + 16 * 8 + 3 + 10)
+OPS_PER_PIXEL_CELLS = OPS_PER_PIXEL_MAPS + 2 * 2
 
 
 def card_line() -> str:
@@ -71,7 +94,7 @@ def cuda_ms(fn, *args, batches: int = 20, reps: int = 10):
     enqueued, so the events bracket only the GPU's own work. Host-bound
     time: no spin, so the gaps while Python enqueues each call count too
     (what a caller that launches one level at a time pays)."""
-    for _ in range(3):
+    for _ in range(min(3, batches)):
         fn(*args)
     out = []
     for spin in (True, False):
@@ -92,8 +115,15 @@ def cuda_ms(fn, *args, batches: int = 20, reps: int = 10):
     return tuple(out)
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what sets it): the larger of the
+    bytes over the memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_fast_kernel(images):
-    """Kernel vs plain version on each image: bitwise equality, times."""
+    """Map kernel vs plain version on each image: bitwise equality, times."""
     from lc_crf_slam_torch.ops.fast import fast_score_dual
     from lc_crf_slam_torch.ops.fast_kernel import fast_score_dual_cuda
 
@@ -107,12 +137,52 @@ def check_fast_kernel(images):
             raise AssertionError(f"FAST kernel != plain version on {name}: "
                                  f"max abs err {err}")
         ms, host_ms = cuda_ms(fast_score_dual_cuda, img, 20.0, 7.0)
-        plain_ms, plain_host_ms = cuda_ms(fast_score_dual, img, 20.0, 7.0)
+        plain_ms, plain_host_ms = cuda_ms(fast_score_dual, img, 20.0, 7.0,
+                                          batches=5, reps=2)
         rows.append((name, tuple(img.shape), err, ms, plain_ms))
         print(f"fast_nms {name:>13} {tuple(img.shape)}: bitwise equal; device "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; host-bound kernel "
               f"{host_ms:.4f} ms, plain {plain_host_ms:.4f} ms")
     return rows
+
+
+def check_cell_kernel(name, grays, cfg):
+    """Fused kernel vs plain version on the pyramids of `grays` (B, H, W):
+    `best` bitwise, `y`/`x` exact; times of both. Returns a report row."""
+    from lc_crf_slam_torch.ops.fast_kernel import (fast_cell_best_cuda,
+                                                   fast_cell_best_plain)
+    from lc_crf_slam_torch.ops.pyramid import build_pyramid_batch
+
+    orb = cfg.orb
+    pyr = build_pyramid_batch(grays, orb.n_levels, orb.scale_factor)
+    args = (pyr, float(orb.ini_th_fast), float(orb.min_th_fast), orb.cell_size,
+            orb.edge_margin)
+    out = fast_cell_best_cuda(*args)
+    ref = fast_cell_best_plain(*args)
+    torch.cuda.synchronize()
+    err, n_cells, n_corners = 0.0, 0, 0
+    for l, (o, r) in enumerate(zip(out, ref)):
+        err = max(err, float((o[0] - r[0]).abs().max()))
+        for what, a, b in zip(("best", "y", "x"), o, r):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"fused FAST kernel != plain version on {name}, "
+                                     f"level {l}, {what}: max abs err of best {err}")
+        n_cells += o[0].numel()
+        n_corners += int((o[0] > 0).sum())
+    B = grays.shape[0]
+    ms, host_ms = cuda_ms(fast_cell_best_cuda, *args)
+    plain_ms, _ = cuda_ms(fast_cell_best_plain, *args, batches=3,
+                          reps=2 if B == 1 else 1)
+    n_pixels = pyr.flat.numel()
+    b_ms, b_by = bound(4 * n_pixels + 12 * n_cells, OPS_PER_PIXEL_CELLS * n_pixels)
+    bytes_ms = (4 * n_pixels + 12 * n_cells) / PEAK_BYTES_S * 1e3
+    print(f"fast_cells {name} (B={B}, {n_pixels} pixels, {n_cells} cells, "
+          f"{n_corners} with a corner): best bitwise equal, y/x equal; device "
+          f"kernel {ms:.4f} ms ({ms / B:.4f} a frame), host-bound {host_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms by {b_by} (bytes alone "
+          f"{bytes_ms:.5f} ms)")
+    return {"B": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray) -> float:
@@ -125,15 +195,65 @@ def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray) -> float:
     return float(torch.sqrt(torch.mean(err ** 2)))
 
 
-def drive(slam, frames, counted):
+class Launches:
+    """Kernel launches of the main path, summed over the phases: each
+    phase sets the wrappers' counts to 0 before it runs and adds them
+    after."""
+
+    def __init__(self):
+        self.cells = 0
+        self.maps = 0
+
+    def reset(self):
+        from lc_crf_slam_torch.ops import fast_kernel
+        fast_kernel.reset_launches()
+
+    def take(self):
+        """(fused launches, map launches) since reset, added to the sums."""
+        from lc_crf_slam_torch.ops import fast_kernel
+        self.cells += fast_kernel.cell_launches
+        self.maps += fast_kernel.launches
+        return fast_kernel.cell_launches, fast_kernel.launches
+
+
+def crosscheck_frontend(slam, gray, depth) -> None:
+    """The keypoints `build_frame` takes from the fused kernel equal those
+    selected from the map kernel's score maps (`frame.score_maps`)."""
+    from lc_crf_slam_torch.models.frame import build_frame, score_maps
+    from lc_crf_slam_torch.ops.pyramid import features_per_level
+    from lc_crf_slam_torch.ops.select import select_keypoints
+
+    orb = slam.cfg.orb
+    gray, depth = slam._upload(gray), slam._upload(depth)
+    frame = build_frame(slam.cam, slam.cfg, gray, depth)
+    quotas = features_per_level(orb.max_keypoints, orb.n_levels, orb.scale_factor)
+    uv, valid = [], []
+    for l, (hi, lo) in enumerate(score_maps(slam.cfg, gray)):
+        uv_l, _, val_l = select_keypoints(hi, lo, quotas[l], cell=orb.cell_size,
+                                          margin=orb.edge_margin)
+        uv.append(uv_l.to(torch.float32) * (orb.scale_factor ** l))
+        valid.append(val_l)
+    uv, valid = torch.cat(uv), torch.cat(valid)
+    if not (torch.equal(valid, frame.valid)
+            and torch.equal(torch.where(valid[:, None], uv, 0.0), frame.uv)):
+        raise AssertionError("front-end cross-check: the fused kernel's keypoints "
+                             "differ from those of the map kernel's score maps")
+
+
+def count_syncs(caught) -> int:
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def drive(slam, frames, counted, launches):
     """Every frame through `slam.track_rgbd`, each timed to a synchronize:
     (ms per frame, {frame: host syncs} for the frames in `counted`, counted
-    in torch's sync debug mode, FAST kernel launches, peak device MiB)."""
-    from lc_crf_slam_torch.ops import fast_kernel
-
+    in torch's sync debug mode, (fused, map) kernel launches, peak device
+    MiB). The first frame's front-end is cross-checked against the map
+    kernel first."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
+    launches.reset()
+    crosscheck_frontend(slam, frames[0].image, frames[0].depth_image)
     frame_ms, syncs = [], {}
     for k, f in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
@@ -145,28 +265,69 @@ def drive(slam, frames, counted):
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
         if k in counted:
-            syncs[k] = sum("synchronizing CUDA operation" in str(w.message)
-                           for w in caught)
-    return (frame_ms, syncs, fast_kernel.launches,
+            syncs[k] = count_syncs(caught)
+    return (frame_ms, syncs, launches.take(),
             torch.cuda.max_memory_allocated() / 2**20)
 
 
-def dynamic_phase(cam) -> int:
-    """The per-frame dynamic pipeline at full width (see the module
-    docstring, step 5); returns the FAST launches of the phase."""
+def check_launches(phase, got, n_fused, n_levels):
+    """`got` = (fused, map) launches of a phase: the fused kernel as often
+    as the path asks for it (+1 for the cross-check's build_frame), the
+    map kernel once per level in the cross-check."""
+    if got != (n_fused + 1, n_levels):
+        raise AssertionError(
+            f"{phase}: kernel launches (fused, map) = {got}, expected "
+            f"({n_fused} + 1 for the cross-check, {n_levels})")
+
+
+def tracking_phase(cam, frames, world, launches) -> None:
+    """The tracking slice at full width (see the module docstring, step 4)."""
     from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 
-    world = SyntheticWorld(cam=cam, n_frames=60, n_static=1400, n_dynamic=0,
-                           seed=7, trajectory="line", billboard=True,
-                           bb_speed=0.04)
-    frames = [world.frame(k, render=True) for k in range(DYN_FRAMES)]
+    cfg = SLAMConfig(loop=LoopConfig(enabled=False))
+    slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False,
+                      device="cuda")
+    # frames 10-11 count their host syncs (the design has one: the
+    # keyframe decision fetch)
+    frame_ms, syncs, got, peak_mb = drive(slam, frames, (10, 11), launches)
+
+    slam.flush_stats()
+    _, poses = slam.get_trajectory()
+    _, gt = world.groundtruth()
+    if poses.shape != (N_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"bad trajectory: shape {poses.shape}")
+    ate = ate_rmse(poses, gt)
+    statuses = [s.get("status", 1) for s in slam.stats]
+    n_kfs = int(slam.map.n_kfs)
+    inliers = [s["n_inliers"] for s in slam.stats if "n_inliers" in s]
+    med = statistics.median(frame_ms[3:])
+    print(f"slice: {N_FRAMES} frames, median {med:.2f} ms/frame after the "
+          f"first 3 ({1e3 / med:.1f} fps), first frame {frame_ms[0]:.1f} ms, "
+          f"ATE {ate:.5f} m, keyframes {n_kfs}, mean inliers "
+          f"{np.mean(inliers):.1f}, lost frames {statuses.count(2)}, "
+          f"kernel launches (fused, map) {got}, peak memory {peak_mb:.0f} MiB, "
+          f"host syncs per frame {list(syncs.values())}")
+    check_launches("tracking phase", got, N_FRAMES, cfg.orb.n_levels)
+    if 2 in statuses:
+        raise AssertionError(f"tracking lost: statuses {statuses}")
+    if n_kfs < 2:
+        raise AssertionError(f"only {n_kfs} keyframes")
+    if not ate < ATE_BAR_M:
+        raise AssertionError(f"ATE {ate} m >= {ATE_BAR_M} m")
+
+
+def dynamic_phase(cam, frames, world, launches) -> float:
+    """The per-frame dynamic pipeline at full width (see the module
+    docstring, step 5); returns its median ms/frame."""
+    from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
     cfg = SLAMConfig(loop=LoopConfig(enabled=False))
     slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
                       device="cuda")
     # from the 4th frame on, count every frame's host syncs
-    frame_ms, syncs, launches, peak_mb = drive(slam, frames, range(3, DYN_FRAMES))
+    frame_ms, syncs, got, peak_mb = drive(slam, frames, range(3, DYN_FRAMES), launches)
 
     slam.flush_stats()
     _, poses = slam.get_trajectory()
@@ -182,23 +343,23 @@ def dynamic_phase(cam) -> int:
     kf_at = [k for k in range(3, DYN_FRAMES) if is_kf[k]]
     other_at = [k for k in range(3, DYN_FRAMES) if not is_kf[k]]
     last = slam.stats[-1]
-    print(f"dynamic: {DYN_FRAMES} frames, median {statistics.median(frame_ms[3:]):.2f} "
+    med = statistics.median(frame_ms[3:])
+    print(f"dynamic: {DYN_FRAMES} frames, median {med:.2f} "
           f"ms/frame after the first 3 (keyframe frames {statistics.median(kf_ms):.2f} "
           f"over {len(kf_ms)}, other frames {statistics.median(other_ms):.2f} over "
-          f"{len(other_ms)}), first frame {frame_ms[0]:.1f} ms")
+          f"{len(other_ms)}), mean of frames 1-{DYN_FRAMES - 1} {np.mean(frame_ms[1:]):.2f}, "
+          f"first frame {frame_ms[0]:.1f} ms")
     print(f"dynamic: ATE {ate:.5f} m (JAX reference on the same frames, CPU: "
           f"{REF_DYN_ATE_M:.5f} m), keyframes {n_kfs}, lost frames "
           f"{statuses.count(2)}, mapping_step calls {slam.n_mapping_steps}, "
-          f"crf_step calls {slam.n_crf_steps}, FAST launches {launches}, peak "
-          f"memory {peak_mb:.0f} MiB")
+          f"crf_step calls {slam.n_crf_steps}, kernel launches (fused, map) {got}, "
+          f"peak memory {peak_mb:.0f} MiB")
     print(f"dynamic: host syncs on keyframe frame {kf_at[0]}: {syncs[kf_at[0]]}, on "
           f"non-keyframe frame {other_at[0]}: {syncs[other_at[0]]}; per frame "
           f"from the 4th {list(syncs.values())}")
     print(f"dynamic: last frame n_dynamic {last['n_dynamic']}, n_tracks "
           f"{last['crf_tracks']}")
-    if launches != cfg.orb.n_levels * DYN_FRAMES:
-        raise AssertionError(f"dynamic phase: FAST kernel launched {launches} "
-                             f"times, expected {cfg.orb.n_levels * DYN_FRAMES}")
+    check_launches("dynamic phase", got, DYN_FRAMES, cfg.orb.n_levels)
     if 2 in statuses:
         raise AssertionError(f"dynamic phase: tracking lost: statuses {statuses}")
     if n_kfs < 2:
@@ -215,7 +376,101 @@ def dynamic_phase(cam) -> int:
                              f"non-keyframe frame {other_at[0]}, expected 1")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"dynamic phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return launches
+    return float(np.mean(frame_ms[1:]))
+
+
+def sequence_phase(cam, frames, world, launches, dyn_ms: float) -> None:
+    """The chunked throughput path at full width (see the module
+    docstring, step 6)."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
+    cfg = SLAMConfig()          # loop detection on
+    slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
+                      device="cuda")
+    slam.seq_phases = {}
+    grays = np.stack([f.image for f in frames]).astype(np.float32)
+    depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
+    stamps = [f.timestamp for f in frames]
+
+    # every chunk: host syncs in torch's sync debug mode, time to a synchronize
+    chunks = []     # (frames, syncs, ms)
+    inner = slam._track_chunk
+
+    def counted_chunk(g, d, t):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = inner(g, d, t)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            chunks.append((len(t), count_syncs(caught),
+                           (time.perf_counter() - t0) * 1e3))
+        return out
+
+    slam._track_chunk = counted_chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    crosscheck_frontend(slam, frames[0].image, frames[0].depth_image)
+    poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
+    torch.cuda.synchronize()
+    got = launches.take()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    n_seq = DYN_FRAMES - 1      # the first frame goes through track_rgbd
+    n_chunks = -(-n_seq // SEQ_CHUNK)
+    slam.flush_stats()
+    _, poses = slam.get_trajectory()
+    _, gt = world.groundtruth()
+    if poses.shape != (DYN_FRAMES, 4, 4) or not np.all(np.isfinite(poses)) \
+            or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
+        raise AssertionError(f"sequence phase: bad trajectory, shapes {poses.shape} "
+                             f"{poses_tcw.shape}")
+    ate = ate_rmse(poses, gt[:DYN_FRAMES])
+    n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
+                 if s.get("event") == "chunk_lost")
+    n_kfs = int(slam.map.n_kfs)
+    in_chunk_kfs = len(slam.kf_log)
+    ms_frame = sum(c[2] for c in chunks) / n_seq
+    total = sum(slam.seq_phases.values())
+    split = ", ".join(f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items())
+    print(f"sequence: {n_seq} chunked frames in {n_chunks} chunks of {SEQ_CHUNK}: "
+          f"{ms_frame:.2f} ms/frame (chunks {[round(c[2], 1) for c in chunks]} ms); "
+          f"the same world per frame through track_rgbd (dynamic phase, loop "
+          f"detection off): {dyn_ms:.2f} ms/frame")
+    print(f"sequence: seq_phases, host ms/frame: {split} (sum "
+          f"{total * 1e3 / n_seq:.2f})")
+    print(f"sequence: ATE {ate:.5f} m, keyframes {n_kfs} ({in_chunk_kfs} in chunks), "
+          f"lost frames {n_lost}, mapping_step calls {slam.n_mapping_steps}, "
+          f"detect_loop calls {slam.n_detect_loops}, crf_step calls "
+          f"{slam.n_crf_steps}, kernel launches (fused, map) {got}, host syncs per "
+          f"chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames, "
+          f"peak memory {peak_mb:.0f} MiB")
+    check_launches("sequence phase", got, 1 + n_chunks, cfg.orb.n_levels)
+    if n_lost or int(slam.ts.status) != 1:
+        raise AssertionError(f"sequence phase: {n_lost} lost frames, final status "
+                             f"{int(slam.ts.status)}")
+    if n_kfs < 2:
+        raise AssertionError(f"sequence phase: only {n_kfs} keyframes")
+    if slam.n_mapping_steps != in_chunk_kfs or slam.n_detect_loops != in_chunk_kfs:
+        raise AssertionError(
+            f"sequence phase: {slam.n_mapping_steps} mapping_step and "
+            f"{slam.n_detect_loops} detect_loop calls for {in_chunk_kfs} "
+            f"in-chunk keyframes")
+    if slam.n_crf_steps != n_chunks or len(chunks) != n_chunks:
+        raise AssertionError(f"sequence phase: {slam.n_crf_steps} crf_step calls "
+                             f"for {n_chunks} chunks")
+    for n, syncs, _ in chunks:
+        if syncs > n + 1:
+            raise AssertionError(f"sequence phase: {syncs} host syncs in a chunk "
+                                 f"of {n} frames, at most {n + 1} allowed")
+    if not ate < DYN_ATE_BAR_M:
+        raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
 
 
 def main() -> int:
@@ -223,10 +478,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
+    from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.geometry.camera import TUM3
     from lc_crf_slam_torch.kernels import build
-    from lc_crf_slam_torch.models.system import SLAMSystem
     from lc_crf_slam_torch.ops.pyramid import build_pyramid
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 
@@ -236,19 +490,28 @@ def main() -> int:
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    build.load("fast_nms")
-    print(f"build fast_nms (nvcc, then load): {time.perf_counter() - t0:.2f} s")
+    built = build.build_all()
+    for name in build.kernel_names():
+        build.load(name)
+    print(f"build {sorted(built)} (one nvcc each, in parallel, then load): "
+          f"{time.perf_counter() - t0:.2f} s")
 
-    # ---- kernel vs plain ---------------------------------------------------
+    # ---- worlds ------------------------------------------------------------
     cam = TUM3
+    cfg = SLAMConfig()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
     world = SyntheticWorld(cam=cam, n_frames=N_FRAMES, n_static=600,
                            n_dynamic=0, seed=0)
-    t0 = time.perf_counter()
     frames = [world.frame(k, render=True) for k in range(N_FRAMES)]
-    print(f"rendered {N_FRAMES} frames {cam.width}x{cam.height} in "
+    dyn_world = SyntheticWorld(cam=cam, n_frames=60, n_static=1400, n_dynamic=0,
+                               seed=7, trajectory="line", billboard=True,
+                               bb_speed=0.04)
+    dyn_frames = [dyn_world.frame(k, render=True) for k in range(DYN_FRAMES)]
+    print(f"rendered {N_FRAMES} + {DYN_FRAMES} frames {cam.width}x{cam.height} in "
           f"{time.perf_counter() - t0:.1f} s")
-    dev = torch.device("cuda")
-    cfg = SLAMConfig(loop=LoopConfig(enabled=False))
+
+    # ---- kernels vs plain --------------------------------------------------
     levels = build_pyramid(torch.as_tensor(frames[0].image, device=dev),
                            cfg.orb.n_levels, cfg.orb.scale_factor)
     rng = np.random.default_rng(0)
@@ -257,57 +520,56 @@ def main() -> int:
         images.append((f"random{shape[0]}x{shape[1]}", torch.as_tensor(
             (rng.random(shape) * 255).astype(np.float32), device=dev)))
     rows = check_fast_kernel(images)
+    chunk_grays = torch.as_tensor(
+        np.stack([f.image for f in dyn_frames[1:1 + SEQ_CHUNK]]).astype(np.float32),
+        device=dev)
+    cells_b1 = check_cell_kernel("one frame", chunk_grays[:1], cfg)
+    cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
 
-    # ---- the tracking slice at full width ----------------------------------
-    slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False,
-                      device="cuda")
-    # frames 10-11 count their host syncs (the design has one: the
-    # keyframe decision fetch)
-    frame_ms, syncs, fast_launches, peak_mb = drive(slam, frames, (10, 11))
-
-    slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
-    if poses.shape != (N_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
-        raise AssertionError(f"bad trajectory: shape {poses.shape}")
-    ate = ate_rmse(poses, gt)
-    statuses = [s.get("status", 1) for s in slam.stats]
-    n_kfs = int(slam.map.n_kfs)
-    inliers = [s["n_inliers"] for s in slam.stats if "n_inliers" in s]
-    med = statistics.median(frame_ms[3:])
-    print(f"slice: {N_FRAMES} frames, median {med:.2f} ms/frame after the "
-          f"first 3 ({1e3 / med:.1f} fps), first frame {frame_ms[0]:.1f} ms, "
-          f"ATE {ate:.5f} m, keyframes {n_kfs}, mean inliers "
-          f"{np.mean(inliers):.1f}, lost frames {statuses.count(2)}, "
-          f"FAST launches {fast_launches}, peak memory {peak_mb:.0f} MiB, "
-          f"host syncs per frame {list(syncs.values())}")
-    if fast_launches != cfg.orb.n_levels * N_FRAMES:
-        raise AssertionError(
-            f"FAST kernel launched {fast_launches} times, expected "
-            f"{cfg.orb.n_levels * N_FRAMES}")
-    if 2 in statuses:
-        raise AssertionError(f"tracking lost: statuses {statuses}")
-    if n_kfs < 2:
-        raise AssertionError(f"only {n_kfs} keyframes")
-    if not ate < ATE_BAR_M:
-        raise AssertionError(f"ATE {ate} m >= {ATE_BAR_M} m")
-
-    # ---- the per-frame dynamic pipeline at full width ----------------------
-    dyn_launches = dynamic_phase(cam)
+    # ---- the three phases at full width ------------------------------------
+    launches = Launches()
+    tracking_phase(cam, frames, world, launches)
+    dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world, launches)
+    sequence_phase(cam, dyn_frames, dyn_world, launches, dyn_ms)
 
     # ---- report ------------------------------------------------------------
     level_rows = [r for r in rows if r[0].startswith("level")]
+    n_pixels = sum(r[1][0] * r[1][1] for r in level_rows)
+    maps_bound_ms, maps_bound_by = bound(12 * n_pixels, OPS_PER_PIXEL_MAPS * n_pixels)
     report = {"kernels": [{
+        "name": "fast_cell_best",
+        "route": "cuda",
+        "source": "lc_crf_slam_torch/csrc/fast_cells.cu",
+        "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
+        "launches": launches.cells,
+        "max_abs_err": max(cells_b1["max_abs_err"], cells_b15["max_abs_err"]),
+        # one launch for a chunk of 15 frames (the throughput path's shape)
+        "ms": cells_b15["ms"],
+        "plain_ms": cells_b15["plain_ms"],
+        "bound_ms": cells_b15["bound_ms"],
+        "bound_by": cells_b15["bound_by"],
+        "library_ms": None,     # no single PyTorch call computes it
+        # one launch for one frame (the per-frame path's shape)
+        "one_frame": {k: cells_b1[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+    }, {
         "name": "fast_nms_dual",
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_nms.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        "launches": fast_launches + dyn_launches,
+        # the phases' front-end cross-checks: 8 levels each
+        "launches": launches.maps,
         "max_abs_err": max(r[2] for r in rows),
-        # one frame's FAST: the sum over the 8 pyramid level shapes
+        # one frame's maps: the sum over the 8 pyramid level shapes
         "ms": sum(r[3] for r in level_rows),
         "plain_ms": sum(r[4] for r in level_rows),
+        "bound_ms": maps_bound_ms,
+        "bound_by": maps_bound_by,
+        "library_ms": None,     # no single PyTorch call computes it
     }]}
+    for k in report["kernels"]:
+        if k["launches"] < 1:
+            raise AssertionError(f"kernel {k['name']} was never launched by the phases")
     print(card_line())
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

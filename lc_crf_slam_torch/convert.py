@@ -2,7 +2,7 @@
 
 The system has no learned weights; its state is the map, the tracking
 state and the frame. These helpers turn a reference `MapState` /
-`TrackState` / `Frame` / `BAProblem` (any NamedTuple of arrays, read
+`TrackState` / `Frame` / `BAProblem` / `LoopCandidate` (any NamedTuple of arrays, read
 with `np.asarray`; a map state at any point of the pipeline, mapping
 included) into the port's tensors, and a port state back into numpy
 arrays, so a test can run the reference for a few frames, continue in
@@ -20,6 +20,7 @@ import torch
 
 from ._ops import i32_to_u32, u32_to_i32
 from .models.frame import Frame
+from .models.loopclosing import LoopCandidate
 from .models.mapstate import MapState
 from .models.tracking import TrackState
 from .ops.schur import BAProblem
@@ -50,6 +51,18 @@ def frame_to_torch(frame, device: str | torch.device = "cpu") -> Frame:
 
 def ba_problem_to_torch(prob, device: str | torch.device = "cpu") -> BAProblem:
     return _convert(prob, BAProblem, device)
+
+
+def loop_candidate_to_torch(lc, device: str | torch.device = "cpu") -> LoopCandidate:
+    return _convert(lc, LoopCandidate, device)
+
+
+def consistent_groups_to_numpy(groups) -> list:
+    """`SLAMSystem._consistent_groups` of either package ([(covisibility
+    group mask (F,), streak)]) as host values; the streak state
+    `track_sequence` carries between keyframes, with `_last_loop_kf` (a
+    plain int in both)."""
+    return [(np.asarray(mask, dtype=bool), int(streak)) for mask, streak in groups]
 
 
 def to_numpy(state) -> Dict[str, np.ndarray]:

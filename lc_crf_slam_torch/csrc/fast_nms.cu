@@ -21,57 +21,15 @@
 // NMS ring) in shared memory, scores the tile plus a 1-px ring into
 // shared memory at both thresholds, synchronises, and applies NMS from
 // shared memory. Global memory is read once and written once. Fusing the
-// 8 levels into one launch, or the per-cell max of keypoint selection,
-// is later work.
+// 8 levels into one launch, and the per-cell max of keypoint selection,
+// is what fast_cells.cu does: the main path runs that kernel, and this one
+// stays as the way to look at the maps.
 
-#include <cuda_runtime.h>
+#include "fast_common.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-constexpr int kHalo = 4;
-constexpr int kSmemW = kTileW + 2 * kHalo;
-constexpr int kSmemH = kTileH + 2 * kHalo;
-constexpr int kRingW = kTileW + 2;
-constexpr int kRingH = kTileH + 2;
-constexpr int kArc = 9;
-
-// 16 Bresenham circle offsets (dy, dx), radius 3, clockwise from 12
-// o'clock: the order of ops/fast.py CIRCLE_OFFSETS.
-__constant__ int kDy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int kDx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-
-__device__ __forceinline__ bool has_arc(unsigned int bits) {
-  unsigned int ext = bits | (bits << 16);  // circular extension
-  unsigned int run = ext;
-#pragma unroll
-  for (int j = 1; j < kArc; ++j) run &= ext >> j;
-  return (run & 0xFFFFu) != 0u;
-}
-
-// Score of the pixel whose centre sits at s[cy][cx] in shared memory.
-__device__ __forceinline__ float fast_score(float (*s)[kSmemW], int cy, int cx,
-                                            float t) {
-  const float I = s[cy][cx];
-  const float hi = I + t;
-  const float lo = I - t;
-  unsigned int bright = 0u, dark = 0u;
-  float mb = 0.0f, md = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    const float c = s[cy + kDy[k]][cx + kDx[k]];
-    const bool b = c > hi;
-    const bool d = c < lo;
-    bright |= (b ? 1u : 0u) << k;
-    dark |= (d ? 1u : 0u) << k;
-    mb = mb + (b ? __fsub_rn(__fsub_rn(c, I), t) : 0.0f);
-    md = md + (d ? __fsub_rn(__fsub_rn(I, c), t) : 0.0f);
-  }
-  const float sb = has_arc(bright) ? mb : 0.0f;
-  const float sd = has_arc(dark) ? md : 0.0f;
-  return fmaxf(sb, sd);
-}
+using namespace lc_fast;
 
 __global__ void fast_nms_dual_kernel(const float* __restrict__ img,
                                      float* __restrict__ out_hi,
@@ -86,13 +44,7 @@ __global__ void fast_nms_dual_kernel(const float* __restrict__ img,
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
 
-  // tile + halo; pixels outside the image are never read by a score
-  for (int i = tid; i < kSmemH * kSmemW; i += nthreads) {
-    const int ly = i / kSmemW, lx = i % kSmemW;
-    const int gy = y0 - kHalo + ly, gx = x0 - kHalo + lx;
-    s_img[ly][lx] =
-        (gy >= 0 && gy < H && gx >= 0 && gx < W) ? img[gy * W + gx] : 0.0f;
-  }
+  load_tile(img, H, W, y0, x0, tid, nthreads, s_img);
   __syncthreads();
 
   // scores on tile + 1-px ring: 0 outside the 3-px band, -inf off-image

@@ -3,17 +3,21 @@
 Each kernel source under `lc_crf_slam_torch/csrc/` has a plain C entry
 point, so it compiles in seconds without PyTorch's headers. The shared
 library goes to `build/torch_kernels/` at the repository root and is
-rebuilt whenever its source is newer. Nothing is built at import time:
-the first wrapper call on a CUDA tensor triggers the build.
+rebuilt whenever its source or a shared header (`*.cuh`) is newer.
+Nothing is built at import time: the first wrapper call on a CUDA tensor
+triggers the build, or `build_all()` builds every source at once, one
+nvcc process each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import os
 import shutil
 import subprocess
+from typing import Iterable, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -31,21 +35,55 @@ def _nvcc() -> str:
     return cand
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` into `build/torch_kernels/lib<name>.so`
-    (if missing or stale) and load it."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
+def kernel_names() -> list:
+    """Every kernel source under csrc/, by name."""
+    return sorted(os.path.splitext(os.path.basename(p))[0]
+                  for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _paths(name: str, tag: str = ""):
+    return (os.path.join(CSRC_DIR, f"{name}.cu"),
+            os.path.join(BUILD_DIR, f"lib{name}{tag}.so"))
+
+
+def _stale(name: str, tag: str = "") -> bool:
+    src, out = _paths(name, tag)
+    if not os.path.exists(out):
+        return True
+    deps = [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return os.path.getmtime(out) < max(os.path.getmtime(d) for d in deps)
+
+
+def build_all(names: Optional[Iterable[str]] = None, flags=(), tag: str = "") -> dict:
+    """Compile every stale `csrc/<name>.cu` into
+    `build/torch_kernels/lib<name><tag>.so`, all nvcc processes started
+    together; returns {name: compiler output} of what was built. `flags`
+    are extra nvcc flags (e.g. `-Xptxas -v`, or a `-D` setting that `tag`
+    names)."""
+    procs = {}
+    for name in (kernel_names() if names is None else names):
+        if not _stale(name, tag):
+            continue
+        src, out = _paths(name, tag)
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
+        procs[name] = (tmp, out, src, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, out, src, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builders never see half a file
-    return ctypes.CDLL(out)
+            failed.append(f"nvcc failed on {src}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)   # atomic: concurrent builds never see half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str, flags=(), tag: str = "") -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` (if missing or stale) and load it."""
+    build_all([name], flags, tag)
+    return ctypes.CDLL(_paths(name, tag)[1])

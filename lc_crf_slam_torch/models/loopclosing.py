@@ -1,6 +1,13 @@
-"""Relocalisation (counterpart of the relocalisation part of
-lc_crf_slam_tpu/models/loopclosing.py; loop detection, verification and
-correction are not ported yet).
+"""Loop detection and relocalisation (counterpart of `detect_loop` and
+`relocalize` of lc_crf_slam_tpu/models/loopclosing.py; loop verification
+and correction are not ported yet).
+
+KeyFrameDatabase::DetectLoopCandidates: cosine retrieval over the
+keyframes' descriptor embeddings, gated by the lowest similarity among
+the covisible neighbours and by temporal separation, scores accumulated
+over each candidate's covisibility group, a 0.75 x best admission bar,
+and the surviving top-k with their groups. The consecutive-detection
+group consistency is the host's counter (`SLAMSystem._try_close_loop`).
 
 Tracking::Relocalization: retrieval of the RELOC_CANDS keyframes whose
 descriptor embeddings best match the frame (0.75 × best admission bar),
@@ -26,9 +33,54 @@ from ..ops.match import hamming_matrix, match_nn, projection_gate, resolve_dupli
 from ..ops.pnp import PnPSampler, pnp_ransac
 from .ba import pose_optimize
 from .frame import Frame
-from .mapstate import MapState, _descriptor_embedding
+from .mapstate import MapState, _descriptor_embedding, covisibility
 
 RELOC_CANDS = 4   # retrieval candidates tried per attempt
+
+
+class LoopCandidate(NamedTuple):
+    cand: torch.Tensor     # () int32 best candidate keyframe (-1 none)
+    score: torch.Tensor    # () float32 retrieval score of the best
+    valid: torch.Tensor    # () bool any candidate survived
+    cands: torch.Tensor    # (topk,) int32 surviving candidates (-1 pad)
+    groups: torch.Tensor   # (topk, F) bool covisibility group per candidate
+
+
+def detect_loop(cfg: SLAMConfig, m: MapState, kf_idx: torch.Tensor) -> LoopCandidate:
+    """Retrieval + gating for keyframe `kf_idx` (a 0-d device index); no
+    host read."""
+    topk = cfg.loop.retrieval_topk
+    min_w = cfg.mapping.covisibility_min_weight
+    sim = m.kf_emb @ take_row(m.kf_emb, kf_idx)
+    covis = covisibility(m)
+    # connected = weight-thresholded covisibility edges, as the reference's
+    # GetConnectedKeyFrames
+    connected = take_row(covis, kf_idx) >= min_w
+    # minScore: the lowest similarity among covisible neighbours, capped
+    nbrs = connected & m.kf_alive
+    min_score = torch.where(
+        torch.any(nbrs), torch.min(torch.where(nbrs, sim, float("inf"))), 0.0)
+    min_score = torch.clamp(min_score, max=cfg.loop.min_score_cap)
+    ids = torch.arange(m.capacity_kfs, device=sim.device)
+    eligible = (m.kf_alive & (ids < m.n_kfs) & ~connected
+                & (torch.abs(ids - kf_idx) >= cfg.loop.min_kfs_since_last)
+                & (ids != kf_idx))
+    cand_mask = eligible & (sim >= torch.clamp(min_score, min=cfg.loop.retrieval_floor))
+    # accumulated group score: a candidate's own score plus those of the
+    # fellow candidates inside its covisibility group
+    nbr = covis >= min_w
+    acc = sim + nbr.to(sim.dtype) @ torch.where(cand_mask, sim, 0.0)
+    acc = torch.where(cand_mask, acc, float("-inf"))
+    keep = cand_mask & (acc >= 0.75 * torch.max(acc))
+    # top-k survivors by raw similarity; ties (the -inf padding among them)
+    # to the lower index, as lax.top_k
+    kscore, kidx = stable_topk(torch.where(keep, sim, float("-inf")), topk)
+    kvalid = torch.isfinite(kscore)
+    cands = torch.where(kvalid, kidx, -1).to(torch.int32)
+    groups = (nbr[torch.clamp(cands, min=0).long()]
+              | (ids[None, :] == cands[:, None])) & kvalid[:, None]
+    return LoopCandidate(cand=cands[0], score=kscore[0], valid=torch.any(kvalid),
+                         cands=cands, groups=groups)
 
 
 class RelocResult(NamedTuple):

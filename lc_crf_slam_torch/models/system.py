@@ -4,23 +4,40 @@ lc_crf_slam_tpu/models/system.py).
 `track_rgbd` runs the reference's per-frame pipeline (`_track_frame`):
 tracking, relocalisation when tracking is lost and the map holds two
 keyframes, keyframe insertion behind the backward-flow spawn gate, local
-mapping on every new keyframe, the forward-flow evidence EMA and the CRF
-labeler on every frame. Loop closing, the chunked `track_sequence`, the
-stereo and monocular entry points, the "direct" descriptor and lens
-distortion are not ported yet; a configuration that asks for one of them
-raises `NotImplementedError`.
+mapping and loop detection on every new keyframe, the forward-flow
+evidence EMA and the CRF labeler on every frame.
 
-A frame reads the device once (the keyframe decision and the tracking
-status); a keyframe frame reads it once more for the capacity warning,
-and a relocalisation attempt twice more.
+`track_sequence` is the throughput entry point: frames go in chunks. A
+chunk's front-end runs batched (`build_frames`: one FAST launch) and its
+forward LK flow is hoisted ahead of the tracking loop; every frame that
+asks for a keyframe inserts it, maps (on the shortened InterruptBA
+schedule) and detects loops right there; the CRF labels once per chunk;
+and the host reads one packed transfer per chunk. The reference fuses a
+chunk into one device program with the keyframe branch as a device-side
+conditional and pads the last chunk; eager PyTorch reads the keyframe
+decision on the host (one device->host read per frame, nothing else
+inside a chunk) and runs a ragged last chunk as it is.
+
+Loop detection (`detect_loop`) and the consecutive-detection consistency
+streak are ported; a candidate that becomes ready for verification raises
+`NotImplementedError` (`verify_loop` and the correction are not ported).
+The stereo and monocular entry points, the "direct" descriptor and lens
+distortion are not ported either; asking for one raises
+`NotImplementedError`.
+
+`track_rgbd` reads the device once per frame (the keyframe decision and
+the tracking status); a keyframe frame reads it once more for the
+capacity warning and once for the loop detection, and a relocalisation
+attempt twice more.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,13 +46,13 @@ from .._ops import scatter_set, take_row
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import se3_inverse
-from ..ops.lk_flow import lk_track
+from ..ops.lk_flow import lk_track, lk_track_batch
 from ..ops.pnp import uniform_sampler
 from ..utils.io_tum import write_trajectory_tum
 from .ba import draw_consensus
 from .crf import crf_step
-from .frame import Frame, build_frame
-from .loopclosing import relocalize
+from .frame import Frame, build_frame, build_frames
+from .loopclosing import detect_loop, relocalize
 from .mapping import mapping_step
 from .mapstate import MapState, empty_map
 from .tracking import (
@@ -53,8 +70,6 @@ _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
 
 def _check_ported(cam: Pinhole, cfg: SLAMConfig) -> None:
     missing = []
-    if cfg.loop.enabled:
-        missing.append("loop closing (cfg.loop.enabled)")
     if cfg.orb.descriptor_variant != "matmul":
         missing.append(f"descriptor_variant={cfg.orb.descriptor_variant!r}")
     if cam.has_distortion:
@@ -82,10 +97,19 @@ def flow_evidence(cfg: SLAMConfig, cam: Pinhole, m: MapState,
     prediction from their map points at the new pose into p_flow_err."""
     use = last_valid & (last_obs >= 0)
     res = lk_track(gray_prev, gray_next, last_uv, use, n_levels=cfg.crf.flow_levels)
+    return flow_ema(cfg, cam, m, res.uv_next, res.ok, last_obs, last_valid, Tcw_new)
+
+
+def flow_ema(cfg: SLAMConfig, cam: Pinhole, m: MapState, uv_next: torch.Tensor,
+             flow_ok: torch.Tensor, last_obs: torch.Tensor,
+             last_valid: torch.Tensor, Tcw_new: torch.Tensor) -> MapState:
+    """The evidence update of `flow_evidence` from flow already tracked
+    (`track_sequence` hoists a chunk's LK ahead of its tracking loop)."""
+    use = last_valid & (last_obs >= 0)
     ids = torch.clamp(last_obs, min=0).long()
     uv_pred, z = _project(cam, Tcw_new, m.p_xyz[ids])
-    ferr = torch.linalg.norm(res.uv_next - uv_pred, dim=-1)
-    ok = use & res.ok & (z > 0.05)
+    ferr = torch.linalg.norm(uv_next - uv_pred, dim=-1)
+    ok = use & flow_ok & (z > 0.05)
     decay = cfg.crf.flow_decay
     new = decay * m.p_flow_err[ids] + (1 - decay) * torch.clamp(ferr, max=50.0)
     return m._replace(p_flow_err=scatter_set(
@@ -109,12 +133,44 @@ def spawn_flow_dyn(cfg: SLAMConfig, cam: Pinhole, gray_cur: torch.Tensor,
     return use & res.ok & (z_prev > 0.05) & (mism > cfg.crf.spawn_flow_gate)
 
 
+class _PhaseClock:
+    """Adds the host seconds between laps to a dict of phases (or to
+    nothing, when the dict is None)."""
+
+    def __init__(self, phases: Optional[dict]):
+        self.phases = phases
+        self.t0 = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.phases is not None:
+            now = time.perf_counter()
+            self.phases[name] = self.phases.get(name, 0.0) + now - self.t0
+            self.t0 = now
+
+
+def _to_host(items: Sequence) -> np.ndarray:
+    """Stack a list whose entries are device tensors (the per-frame path
+    defers them) or host values (a chunk's fetch) into one numpy array,
+    with one transfer for all the tensors."""
+    where = [i for i, x in enumerate(items) if isinstance(x, torch.Tensor)]
+    out = list(items)
+    if where:
+        vals = torch.stack([items[i] for i in where]).cpu().numpy()
+        for i, v in zip(where, vals):
+            out[i] = v
+    return np.stack([np.asarray(x) for x in out])
+
+
 class SLAMSystem:
     """Single-session RGB-D SLAM on one device.
 
     `device` defaults to CUDA and raises if no card is present; the CPU
     runs only when asked for (`device="cpu"`), as the tests do.
-    `n_mapping_steps` and `n_crf_steps` count the stage calls.
+    `n_mapping_steps`, `n_crf_steps` and `n_detect_loops` count the stage
+    calls. Set `seq_phases` to a dict and `track_sequence` adds the host
+    seconds of its phases to it (frontend, lk, steps, crf, chunk_fetch,
+    host_misc, reloc_host, loop_host); the device runs behind the host,
+    and the fetch absorbs what it still has to do.
     """
 
     def __init__(self, cam: Pinhole, cfg: Optional[SLAMConfig] = None,
@@ -125,6 +181,8 @@ class SLAMSystem:
         self.cfg = cfg or SLAMConfig()
         self.enable_mapping = enable_mapping
         self.enable_crf = self.cfg.crf.enabled if enable_crf is None else enable_crf
+        self.enable_loop = self.cfg.loop.enabled
+        self.seq_phases: Optional[dict] = None
         _check_ported(cam, self.cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -156,6 +214,9 @@ class SLAMSystem:
         self._last_Tcw: Optional[torch.Tensor] = None
         self.n_mapping_steps = 0
         self.n_crf_steps = 0
+        self.n_detect_loops = 0
+        self._consistent_groups: List[tuple] = []   # [(covis-group mask, streak)]
+        self._last_loop_kf = -10**9
 
     # ------------------------------------------------------------------ api
     def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
@@ -230,6 +291,8 @@ class SLAMSystem:
                     self.n_mapping_steps += 1
                 self.kf_log.append((timestamp, self.ts.ref_kf))
                 self._warn_if_at_capacity()
+                if self.enable_loop:
+                    self._try_close_loop()
             zero = torch.zeros((), dtype=torch.int64, device=self.device)
             crf_dyn = crf_tracks = zero
             if self.enable_crf:
@@ -259,6 +322,225 @@ class SLAMSystem:
             rec["_dev"] = dev_stats
         self.stats.append(rec)
         return Tcw
+
+    # ------------------------------------------------------ throughput mode
+    def track_sequence_stereo(self, grays_left, grays_right, timestamps,
+                              chunk: int = 8) -> np.ndarray:
+        raise NotImplementedError(
+            "track_sequence_stereo: ops/stereo.py (stereo_match) is not ported")
+
+    @functools.cached_property
+    def _chunk_cfgs(self):
+        """(tracking config, mapping config) of the chunk path. Mapping
+        inside a chunk always has the next frame pending, so local BA and
+        the neighbour passes run the shortened InterruptBA schedule; and
+        `track_step` decides keyframes under the throttled minimum gap
+        (the reference's queue back-pressure)."""
+        cfg = self.cfg
+        cfg_map = dataclasses.replace(
+            cfg,
+            local_ba=dataclasses.replace(
+                cfg.local_ba,
+                outer_iters_1=cfg.local_ba.interrupt_iters_1,
+                outer_iters_2=cfg.local_ba.interrupt_iters_2),
+            mapping=dataclasses.replace(
+                cfg.mapping,
+                triang_neighbors=cfg.mapping.interrupt_triang_neighbors,
+                fuse_reverse_neighbors=cfg.mapping.interrupt_fuse_reverse_neighbors))
+        cfg_track = dataclasses.replace(
+            cfg, tracking=dataclasses.replace(
+                cfg.tracking,
+                min_frames_between_kf=max(cfg.tracking.min_frames_between_kf,
+                                          cfg.tracking.interrupt_min_kf_gap)))
+        return cfg_track, cfg_map
+
+    def track_sequence(self, grays, depths, timestamps, chunk: int = 8,
+                       stereo: bool = False) -> np.ndarray:
+        """Throughput mode: track N frames ((N, H, W) grayscale and depth)
+        in chunks of `chunk`. Keyframes are inserted, mapped and checked
+        for loops on the frame that asks for them, as in `track_rgbd`;
+        the CRF relabels once per chunk, and relocalisation is tried at a
+        chunk boundary after a persistent loss. Returns the (N, 4, 4)
+        camera poses Tcw (N - 1 when the first frame initialises the
+        map)."""
+        if stereo:
+            raise NotImplementedError(
+                "track_sequence(stereo=True): ops/stereo.py (stereo_match) "
+                "is not ported")
+        grays, depths = self._upload(grays), self._upload(depths)
+        timestamps = np.asarray(timestamps, dtype=np.float64)
+        if not self.initialized:
+            self.track_rgbd(grays[0], depths[0], float(timestamps[0]))
+            grays, depths, timestamps = grays[1:], depths[1:], timestamps[1:]
+        poses = [np.zeros((0, 4, 4), np.float32)]
+        for i in range(0, grays.shape[0], chunk):
+            j = min(i + chunk, grays.shape[0])
+            poses.append(self._track_chunk(grays[i:j], depths[i:j], timestamps[i:j]))
+        return np.concatenate(poses)
+
+    def _track_chunk(self, g: torch.Tensor, d: torch.Tensor,
+                     timestamps: np.ndarray) -> np.ndarray:
+        """One chunk of `track_sequence`: (take, 4, 4) poses Tcw."""
+        cfg, cfg_map = self._chunk_cfgs
+        cam, dev = self.cam, self.device
+        take = g.shape[0]
+        clock = _PhaseClock(self.seq_phases)
+
+        frames = build_frames(cam, cfg, g, d)
+        clock.lap("frontend")
+        prev_grays = [self._last_gray if self._last_gray is not None else g[0],
+                      *g[:-1]]
+        if self.enable_crf:
+            # forward LK (frame k-1's keypoints -> image k) does not depend
+            # on the poses: the whole chunk's runs ahead of the loop
+            prev_uvs = [self.ts.last_uv, *(f.uv for f in frames[:-1])]
+            ones = torch.ones_like(frames[0].valid)
+            flow = lk_track_batch(prev_grays, g, prev_uvs, [ones] * take,
+                                  n_levels=cfg.crf.flow_levels)
+        clock.lap("lk")
+        t_dev = self._upload(timestamps)
+        spawn_gate = self.enable_crf and cfg.crf.spawn_flow_gate > 0
+
+        Tcw_seq, Tcr_seq, ref_seq, status_seq = [], [], [], []
+        kf_flags: List[bool] = []
+        loops = []      # one LoopCandidate per keyframe of the chunk
+        for k, fr in enumerate(frames):
+            prev_obs, prev_valid = self.ts.last_obs, self.ts.last_valid
+            Tcw_prev = self.ts.Tcw
+            ts, m, info = track_step(cfg, cam, self.map, self.ts, fr, self._sampler())
+            # the frame's one device->host read: the reference branches on
+            # the device (lax.cond), eager PyTorch on the host
+            kf_here = bool(info.need_kf)
+            if kf_here:
+                flow_dyn = None
+                if spawn_gate:
+                    flow_dyn = spawn_flow_dyn(cfg, cam, g[k], prev_grays[k], fr.uv,
+                                              fr.depth, fr.valid, ts.Tcw, Tcw_prev)
+                m, ts = insert_keyframe(cfg, cam, m, ts, fr, info.obs, t_dev[k],
+                                        info.near_map, flow_dyn)
+                if self.enable_mapping:
+                    m = mapping_step(cfg_map, cam, m, ts.ref_kf)
+                    self.n_mapping_steps += 1
+                if self.enable_loop:
+                    loops.append(detect_loop(cfg, m, ts.ref_kf))
+                    self.n_detect_loops += 1
+            if self.enable_crf:
+                m = flow_ema(cfg, cam, m, flow.uv_next[k], flow.ok[k], prev_obs,
+                             prev_valid, ts.Tcw)
+            self.map, self.ts = m, ts
+            self._n_frames += 1
+            kf_flags.append(kf_here)
+            Tcw_seq.append(ts.Tcw)
+            # frame pose relative to its reference keyframe at track time
+            Tcr_seq.append(ts.Tcw @ se3_inverse(take_row(m.kf_Tcw, ts.ref_kf)))
+            ref_seq.append(ts.ref_kf)
+            status_seq.append(ts.status)
+        clock.lap("steps")
+        if self.enable_crf:
+            self.map, _ = crf_step(cfg, self.map, self.ts.frame_idx)
+            self.n_crf_steps += 1
+        self._last_gray = g[take - 1]
+        self._last_Tcw = self.ts.Tcw
+        clock.lap("crf")
+
+        # ONE packed device->host transfer per chunk (float32 holds every
+        # index and flag exactly)
+        f32 = torch.float32
+        parts = [torch.stack(Tcw_seq).reshape(-1), torch.stack(Tcr_seq).reshape(-1),
+                 torch.stack(ref_seq).to(f32), torch.stack(status_seq).to(f32),
+                 self.map.n_kfs.to(f32).reshape(1)]
+        if loops:
+            parts += [torch.stack([lc.valid for lc in loops]).to(f32),
+                      torch.stack([lc.cands for lc in loops]).to(f32).reshape(-1),
+                      torch.stack([lc.groups for lc in loops]).to(f32).reshape(-1)]
+        host = torch.cat(parts).cpu().numpy()
+        clock.lap("chunk_fetch")
+        cut = np.cumsum([16 * take, 16 * take, take, take, 1])
+        Tcw_np = host[:cut[0]].reshape(take, 4, 4)
+        Tcr_np = host[cut[0]:cut[1]].reshape(take, 4, 4)
+        refkf = host[cut[1]:cut[2]].astype(np.int64)
+        statuses = host[cut[2]:cut[3]].astype(np.int64)
+        n_kfs = int(host[cut[3]])
+        for k in range(take):
+            self.trajectory.append((float(timestamps[k]), Tcr_np[k], int(refkf[k])))
+            if kf_flags[k]:
+                self.kf_log.append((float(timestamps[k]), int(refkf[k])))
+        clock.lap("host_misc")
+        n_lost = int((statuses == 2).sum())
+        if n_lost:
+            self.stats.append({"event": "chunk_lost", "t": float(timestamps[-1]),
+                               "lost_frames": n_lost})
+        # relocalisation at the chunk boundary, after a persistent loss only
+        # (a one-frame inlier dip recovers by the motion model)
+        persist_lost = statuses[-1] == 2 and (take < 2 or statuses[-2] == 2)
+        if persist_lost and n_kfs >= 2:
+            fr = build_frame(cam, self.cfg, g[take - 1], d[take - 1])
+            rr = relocalize(self.cfg, cam, self.map, fr, self._reloc_sampler())
+            if bool(rr.accepted):
+                self.ts = self.ts._replace(
+                    Tcw=rr.Tcw, vel=torch.eye(4, device=dev),
+                    status=torch.ones((), dtype=torch.int32, device=dev))
+                self.stats.append({"event": "chunk_reloc", "t": float(timestamps[-1]),
+                                   "inliers": int(rr.n_inliers)})
+        clock.lap("reloc_host")
+        if loops:
+            n, topk = len(loops), cfg.loop.retrieval_topk
+            lc_valid = host[cut[4]:cut[4] + n] > 0
+            lc_cands = host[cut[4] + n:cut[4] + n + n * topk].astype(np.int64)
+            lc_groups = host[cut[4] + n + n * topk:] > 0
+            kf_steps = [k for k in range(take) if kf_flags[k]]
+            # a keyframe with no detection still goes through: it clears
+            # the consistency streak
+            for i, k in enumerate(kf_steps):
+                self._try_close_loop(pre=(
+                    int(refkf[k]), bool(lc_valid[i]), lc_cands.reshape(n, topk)[i],
+                    lc_groups.reshape(n, topk, -1)[i]))
+        clock.lap("loop_host")
+        return Tcw_np
+
+    def _try_close_loop(self, pre=None) -> None:
+        """LoopClosing::Run body for a newly inserted keyframe: detection
+        (`pre` = (kf, valid, cands, groups) already fetched by a chunk, or
+        None to detect here for the current reference keyframe with one
+        packed fetch), then the consecutive-detection GROUP consistency: a
+        candidate qualifies once its covisibility group has intersected a
+        group of the previous detections `consistency_needed` times in a
+        row. A qualified candidate would be verified and the loop
+        corrected; that part is not ported, so it raises."""
+        if pre is not None:
+            kf, valid, cands, groups = pre
+        else:
+            lc = detect_loop(self.cfg, self.map, self.ts.ref_kf)
+            self.n_detect_loops += 1
+            host = torch.cat([
+                self.ts.ref_kf.reshape(1).to(torch.int32),
+                lc.valid.reshape(1).to(torch.int32), lc.cands,
+                lc.groups.reshape(-1).to(torch.int32)]).cpu().numpy()
+            topk = lc.cands.shape[0]
+            kf, valid, cands = int(host[0]), bool(host[1]), host[2:2 + topk]
+            groups = host[2 + topk:].reshape(topk, -1) > 0
+        if kf - self._last_loop_kf < self.cfg.loop.min_kfs_since_last:
+            return
+        if not valid:
+            self._consistent_groups = []
+            return
+        new_groups, ready = [], []
+        for c, gmask in zip(cands, groups):
+            if c < 0:
+                continue
+            streak = 1
+            for pmask, pstreak in self._consistent_groups:
+                if (gmask & pmask).any():
+                    streak = max(streak, pstreak + 1)
+            new_groups.append((gmask, streak))
+            if streak >= self.cfg.loop.consistency_needed:
+                ready.append(int(c))
+        self._consistent_groups = new_groups
+        if ready:
+            raise NotImplementedError(
+                f"loop candidates {ready[:3]} of keyframe {kf} are ready for "
+                "verification: verify_loop, correct_loop and the budgeted "
+                "global BA are not ported to lc_crf_slam_torch yet")
 
     def flush_stats(self) -> None:
         """Resolve the deferred per-frame device stats and keyframe ids."""
@@ -299,8 +581,8 @@ class SLAMSystem:
         if not self.trajectory:
             return np.zeros((0,)), np.zeros((0, 4, 4))
         ts = np.array([t for t, _, _ in self.trajectory])
-        Tcr_all = torch.stack([T for _, T, _ in self.trajectory]).cpu().numpy()
-        refs = torch.stack([r for _, _, r in self.trajectory]).cpu().numpy()
+        Tcr_all = _to_host([T for _, T, _ in self.trajectory])
+        refs = _to_host([r for _, _, r in self.trajectory])
         kf_Tcw = self.map.kf_Tcw.cpu().numpy()
         kf_alive = self.map.kf_alive.cpu().numpy()
         kf_anchor = self.map.kf_anchor.cpu().numpy()

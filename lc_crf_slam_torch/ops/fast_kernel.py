@@ -1,10 +1,16 @@
-"""Fused dual-threshold FAST + 3x3 NMS: wrapper of the CUDA kernel.
+"""Dual-threshold FAST + 3x3 NMS: wrappers of the two CUDA kernels.
 
-Replaces lc_crf_slam_tpu/ops/pallas_fast.py::fast_score_dual_pallas. The
-kernel (`csrc/fast_nms.cu`) emits both NMS'd score maps of one pyramid
-level in one launch. A tensor on the CPU goes to the plain version
-(`ops/fast.py::fast_score_dual`); a CUDA tensor goes to the kernel, and
-anything the kernel does not take raises.
+Both replace lc_crf_slam_tpu/ops/pallas_fast.py::fast_score_dual_pallas.
+- `fast_cell_best` (`csrc/fast_cells.cu`) is the main path's: one launch
+  takes every pyramid level of every frame of a batch and emits, per 16-px
+  cell, the best corner of keypoint selection (score, y, x) without
+  writing the score maps. Plain version: `fast_cell_best_plain`
+  (`ops/fast.py::fast_score_dual`, then `ops/select.py::cell_best`).
+- `fast_score_dual_nms` (`csrc/fast_nms.cu`) emits both NMS'd score maps
+  of one pyramid level in one launch: the way to look at the maps. Plain
+  version: `ops/fast.py::fast_score_dual`.
+A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+kernel, and anything the kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -12,17 +18,28 @@ from __future__ import annotations
 import ctypes
 import functools
 
+from typing import List, Tuple
+
 import torch
 
 from .fast import fast_score_dual
+from .pyramid import PyramidBatch
+from .select import cell_best
 
-# kernel launches since the last reset (plain-version calls do not count)
+KERNEL_CELL = 16   # the cell size csrc/fast_cells.cu is compiled for
+
+# kernel launches since the last reset (plain-version calls do not count):
+# of the map kernel, and of the fused cell kernel
 launches = 0
+cell_launches = 0
+
+CellBest = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # best, y, x
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, cell_launches
     launches = 0
+    cell_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,3 +86,89 @@ def fast_score_dual_nms(img: torch.Tensor, th_high: float, th_low: float):
     if img.device.type != "cpu":
         raise ValueError(f"no FAST path for device {img.device}")
     return fast_score_dual(img, th_high, th_low)
+
+
+@functools.lru_cache(maxsize=None)
+def _cells_lib(flags=(), tag: str = ""):
+    """The fused kernel's C entry; `flags`/`tag` build a variant (a `-D`
+    setting) beside the default, for `utils/fast_tune.py`."""
+    from ..kernels.build import load
+
+    fn = load("fast_cells", flags, tag).fast_cell_best
+    ints = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ints, ints, ints, ints,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _cell_counts(shapes, cell: int) -> List[int]:
+    return [-(-h // cell) * -(-w // cell) for h, w in shapes]
+
+
+def fast_cell_best_cuda(pyr: PyramidBatch, th_high: float, th_low: float,
+                        cell: int = KERNEL_CELL, margin: int = 19) -> List[CellBest]:
+    """One launch on the current stream over all levels of all frames of
+    `pyr` (a contiguous float32 CUDA buffer): per level (best float32,
+    y int32, x int32), each (B, n_cells_l)."""
+    global cell_launches
+    flat = pyr.flat
+    if not flat.is_cuda:
+        raise ValueError("fast_cell_best_cuda needs a CUDA tensor")
+    if flat.dtype != torch.float32 or flat.dim() != 2 or not flat.is_contiguous():
+        raise ValueError(
+            f"need a contiguous (B, pixels) float32 buffer, got {flat.dtype} "
+            f"{tuple(flat.shape)} contiguous={flat.is_contiguous()}")
+    if cell != KERNEL_CELL:
+        raise ValueError(f"the kernel is compiled for cell={KERNEL_CELL}, got {cell}")
+    if margin < 0 or not th_high >= th_low:
+        raise ValueError(f"need margin >= 0 and th_high >= th_low, got {margin}, "
+                         f"{th_high}, {th_low}")
+    n = len(pyr.shapes)
+    if sum(h * w for h, w in pyr.shapes) != flat.shape[1]:
+        raise ValueError("level shapes do not add up to the buffer's row length")
+    counts = _cell_counts(pyr.shapes, cell)
+    cell_offsets = [sum(counts[:l]) for l in range(n)]
+    B, total = flat.shape[0], sum(counts)
+    best = torch.empty((B, total), dtype=torch.float32, device=flat.device)
+    ys = torch.empty((B, total), dtype=torch.int32, device=flat.device)
+    xs = torch.empty((B, total), dtype=torch.int32, device=flat.device)
+    table = ctypes.c_int * n
+    with torch.cuda.device(flat.device):
+        err = _cells_lib()(
+            flat.data_ptr(), best.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+            B, flat.stride(0), total, n,
+            table(*[h for h, _ in pyr.shapes]), table(*[w for _, w in pyr.shapes]),
+            table(*pyr.offsets), table(*cell_offsets), int(margin),
+            float(th_high), float(th_low),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fast_cell_best launch failed: cudaError {err}")
+    cell_launches += 1
+    return list(zip(*(torch.split(t, counts, dim=1) for t in (best, ys, xs))))
+
+
+def fast_cell_best_plain(pyr: PyramidBatch, th_high: float, th_low: float,
+                         cell: int = KERNEL_CELL, margin: int = 19) -> List[CellBest]:
+    """The plain version of the fused kernel: per frame and level the dual
+    FAST+NMS maps, then their masked per-cell best."""
+    out = []
+    for l in range(len(pyr.shapes)):
+        per_frame = [cell_best(*fast_score_dual(img, th_high, th_low), cell, margin)
+                     for img in pyr.level(l)]
+        out.append(tuple(torch.stack(t) for t in zip(*per_frame)))
+    return out
+
+
+def fast_cell_best(pyr: PyramidBatch, th_high: float, th_low: float,
+                   cell: int = KERNEL_CELL, margin: int = 19) -> List[CellBest]:
+    """Best corner per cell for every level of every frame: the fused
+    kernel for a CUDA buffer, the plain version for a CPU buffer."""
+    if pyr.flat.is_cuda:
+        return fast_cell_best_cuda(pyr, th_high, th_low, cell, margin)
+    if pyr.flat.device.type != "cpu":
+        raise ValueError(f"no FAST path for device {pyr.flat.device}")
+    return fast_cell_best_plain(pyr, th_high, th_low, cell, margin)

@@ -16,7 +16,7 @@ pair of contractions over unfolded views.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -146,3 +146,14 @@ def lk_track(img_prev: torch.Tensor, img_next: torch.Tensor,
     inb = ((guess[:, 0] >= half_win) & (guess[:, 0] < W - half_win)
            & (guess[:, 1] >= half_win) & (guess[:, 1] < H - half_win))
     return FlowResult(uv_next=guess, err=err, ok=valid & inb & (err < max_err))
+
+
+def lk_track_batch(imgs_prev: Sequence[torch.Tensor], imgs_next: Sequence[torch.Tensor],
+                   uvs_prev: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                   **kwargs) -> FlowResult:
+    """`lk_track` over a batch of image pairs (a chunk's hoisted forward
+    flow): the fields gain a leading batch dimension. The pairs run one
+    after another, so each result equals its per-pair call."""
+    res = [lk_track(a, b, uv, v, **kwargs)
+           for a, b, uv, v in zip(imgs_prev, imgs_next, uvs_prev, valids)]
+    return FlowResult(*(torch.stack(f) for f in zip(*res)))

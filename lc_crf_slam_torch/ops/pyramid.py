@@ -11,7 +11,7 @@ builds the same separable weight matrices as jax (its
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +55,9 @@ def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
-    """(H, W) -> shape, jax.image.resize(method="bilinear") semantics."""
-    H, W = img.shape
+    """(..., H, W) -> (..., *shape), jax.image.resize(method="bilinear")
+    semantics; leading dimensions are a batch."""
+    H, W = img.shape[-2:]
     h, w = shape
     out = img
     if h != H:
@@ -76,6 +77,47 @@ def build_pyramid(img: torch.Tensor, n_levels: int,
     for l in range(1, n_levels):
         levels.append(resize_bilinear(levels[-1], shapes[l]).contiguous())
     return levels
+
+
+class PyramidBatch(NamedTuple):
+    """The pyramids of a batch of frames in one allocation: frame b's level
+    l is the contiguous (H_l, W_l) image at `flat[b, offsets[l]:]`. One
+    FAST launch takes the whole buffer."""
+
+    flat: torch.Tensor                      # (B, sum H_l * W_l) float32
+    shapes: Tuple[Tuple[int, int], ...]     # (H_l, W_l) per level
+
+    @property
+    def offsets(self) -> List[int]:
+        """First element of each level in a frame's row of `flat`."""
+        out, off = [], 0
+        for h, w in self.shapes:
+            out.append(off)
+            off += h * w
+        return out
+
+    def level(self, l: int) -> torch.Tensor:
+        """(B, H_l, W_l) view of level l."""
+        h, w = self.shapes[l]
+        off = self.offsets[l]
+        return self.flat[:, off: off + h * w].view(-1, h, w)
+
+
+def build_pyramid_batch(imgs: torch.Tensor, n_levels: int,
+                        scale_factor: float) -> PyramidBatch:
+    """Grayscale (B, H, W) float32 -> the B pyramids of `build_pyramid` in
+    one buffer (the resize is two products with fixed weight matrices, so
+    the batch rides a leading dimension)."""
+    B, H, W = imgs.shape
+    shapes = tuple(pyramid_shapes(H, W, n_levels, scale_factor))
+    pyr = PyramidBatch(
+        imgs.new_empty((B, sum(h * w for h, w in shapes))), shapes)
+    prev = imgs
+    pyr.level(0).copy_(prev)
+    for l in range(1, n_levels):
+        prev = resize_bilinear(prev, shapes[l])
+        pyr.level(l).copy_(prev)
+    return pyr
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,6 +1,8 @@
-"""Per-stage time and op count of the per-frame dynamic pipeline.
+"""Per-stage time and op count of the dynamic pipeline, per frame or
+chunked.
 
     python -m lc_crf_slam_torch.utils.stage_profile [--frames 31]
+    python -m lc_crf_slam_torch.utils.stage_profile --sequence [--chunk 15]
 
 Runs `SLAMSystem.track_rgbd` with mapping and the CRF on (loop closing
 off) over bench.py's billboard world at TUM3 640×480 and default
@@ -10,7 +12,16 @@ call; frames from the 4th on), and the aten ops one call dispatches
 (counted in a second, untimed pass over the same frames). A stage's
 figures include the stages it calls. A third pass traces frames 10-14
 with torch.profiler: device busy ms and kernels per frame, and the
-device's idle share of the unprofiled frame time. Needs a CUDA device.
+device's idle share of the unprofiled frame time.
+
+`--sequence` profiles the chunked throughput path instead
+(`SLAMSystem.track_sequence`, the default configuration with loop
+detection on, same world): the stages of a chunk (the batched front-end
+`build_frames`, the hoisted LK batch, `track_step`, the keyframe branch's
+spawn gate / insertion / `mapping_step` / `detect_loop`, the flow EMA,
+`crf_step`) under the same synchronisation, their aten ops, and the
+unsynchronised `seq_phases` split of a third run (step loop, fetch and
+host logic included). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +41,10 @@ from ..models import mapping, system
 
 # (module, function, row name), outermost first
 STAGES = (
+    (system, "build_frames", "build_frames (chunk)"),
+    (system, "lk_track_batch", "LK batch (chunk)"),
+    (system, "flow_ema", "flow_ema"),
+    (system, "detect_loop", "detect_loop"),
     (system, "build_frame", "build_frame"),
     (system, "track_step", "track_step"),
     (system, "flow_evidence", "flow_evidence"),
@@ -145,6 +160,55 @@ def profile(slam_factory, frames, skip: int = 3):
     return rows
 
 
+def profile_sequence(slam_factory, grays, depths, stamps, chunk: int):
+    """({stage: (calls, ms per call, ms per chunked frame, ops per call)},
+    seq_phases in host ms per chunked frame, ms per chunked frame
+    unsynchronised) of `track_sequence` over the frames; a short run on a
+    system of its own warms the device up first."""
+    sync = torch.cuda.synchronize
+    slam_factory().track_sequence(grays[:4], depths[:4], stamps[:4], chunk=chunk)
+    n = len(stamps) - 1
+    ms = collections.defaultdict(float)
+    calls = collections.defaultdict(int)
+
+    def timed(row, fn, args, kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync()
+        ms[row] += (time.perf_counter() - t0) * 1e3
+        calls[row] += 1
+        return out
+
+    with _instrumented(timed):
+        slam_factory().track_sequence(grays, depths, stamps, chunk=chunk)
+
+    stack: List[str] = []
+    ops = collections.defaultdict(int)
+
+    def counted(row, fn, args, kwargs):
+        stack.append(row)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            stack.pop()
+
+    with _instrumented(counted), _OpCounter(stack, ops):
+        slam_factory().track_sequence(grays, depths, stamps, chunk=chunk)
+    rows = {row: (calls[row], ms[row] / calls[row], ms[row] / n, ops[row] / calls[row])
+            for _, _, row in STAGES if calls[row]}
+    rows["(all frames)"] = (1, 0.0, 0.0, ops["(frame)"] / (n + 1))
+
+    slam = slam_factory()
+    slam.seq_phases = {}
+    sync()
+    t0 = time.perf_counter()
+    slam.track_sequence(grays, depths, stamps, chunk=chunk)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / (n + 1)
+    return rows, {k: v * 1e3 / n for k, v in slam.seq_phases.items()}, wall
+
+
 def device_busy(slam_factory, frames, first: int = 10, n: int = 5, top: int = 10):
     """(busy device ms per frame, kernels per frame, profiled wall ms per
     frame, the `top` kernels by device time as (name, ms per frame,
@@ -175,6 +239,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=31)
     ap.add_argument("--json", default=None, help="also write the rows here")
+    ap.add_argument("--sequence", action="store_true",
+                    help="profile track_sequence instead of track_rgbd")
+    ap.add_argument("--chunk", type=int, default=15)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
@@ -189,11 +256,32 @@ def main() -> int:
     for k in range(args.frames):
         f = world.frame(k, render=True)
         frames.append((f.image, f.depth_image, f.timestamp))
-    cfg = SLAMConfig(loop=LoopConfig(enabled=False))
+    cfg = SLAMConfig() if args.sequence else SLAMConfig(loop=LoopConfig(enabled=False))
 
     def make():
         return system.SLAMSystem(TUM3, cfg, enable_mapping=True, enable_crf=True,
                                  device="cuda")
+
+    header = f"{'stage':24s} {'calls':>6s} {'ms/call':>10s} {'ms/frame':>10s} {'ops/call':>10s}"
+    if args.sequence:
+        import numpy as np
+
+        rows, phases, wall = profile_sequence(
+            make, np.stack([f[0] for f in frames]).astype(np.float32),
+            np.stack([f[1] for f in frames]).astype(np.float32),
+            [f[2] for f in frames], args.chunk)
+        print(f"{torch.cuda.get_device_name(0)}, track_sequence over {args.frames} "
+              f"frames, chunk {args.chunk}: {wall:.2f} ms/frame unsynchronised")
+        print("seq_phases, host ms per chunked frame: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
+        print(header)
+        for row, (c, per_call, per_frame, n_ops) in rows.items():
+            print(f"{row:24s} {c:6d} {per_call:10.2f} {per_frame:10.2f} {n_ops:10.0f}")
+        if args.json:
+            with open(args.json, "w") as fh:
+                json.dump({"device": torch.cuda.get_device_name(0), "rows": rows,
+                           "seq_phases_ms": phases, "ms_per_frame": wall}, fh, indent=1)
+        return 0
 
     rows = profile(make, frames)
     busy, kernels, traced, heavy = device_busy(make, frames)
@@ -206,7 +294,7 @@ def main() -> int:
     print("heaviest device kernels, frames 10-14 (ms/frame, launches/frame):")
     for name, k_ms, k_n in heavy:
         print(f"  {k_ms:8.3f} {k_n:8.1f}  {name[:110]}")
-    print(f"{'stage':24s} {'calls':>6s} {'ms/call':>10s} {'ms/frame':>10s} {'ops/call':>10s}")
+    print(header)
     for row, (c, per_call, per_frame, n_ops) in rows.items():
         print(f"{row:24s} {c:6d} {per_call:10.2f} {per_frame:10.2f} {n_ops:10.0f}")
     if args.json:

@@ -70,3 +70,31 @@ def test_wrapper_refuses_other_devices():
         fast_kernel.fast_score_dual_nms(meta, 20.0, 7.0)
     with pytest.raises(ValueError):
         fast_kernel.fast_score_dual_cuda(torch.from_numpy(IMAGES["random"]), 20.0, 7.0)
+
+
+def test_fused_wrapper_routes_cpu_to_plain_and_counts_no_launch():
+    from lc_crf_slam_torch.ops.pyramid import build_pyramid_batch
+
+    pyr = build_pyramid_batch(torch.from_numpy(IMAGES["random"])[None], 3, 1.2)
+    before = (fast_kernel.cell_launches, fast_kernel.launches)
+    out = fast_kernel.fast_cell_best(pyr, 20.0, 7.0)
+    ref = fast_kernel.fast_cell_best_plain(pyr, 20.0, 7.0)
+    assert len(out) == 3
+    for o, r in zip(out, ref):
+        assert all(torch.equal(a, b) for a, b in zip(o, r))
+        assert o[0].shape[0] == 1 and o[0].dtype == torch.float32
+        assert o[1].dtype == o[2].dtype == torch.int32
+    assert (fast_kernel.cell_launches, fast_kernel.launches) == before
+
+
+def test_fused_wrapper_refuses_other_devices():
+    """As the map kernel's wrapper: only a CPU buffer takes the plain
+    path, and the kernel entry refuses a CPU buffer."""
+    from lc_crf_slam_torch.ops.pyramid import PyramidBatch, build_pyramid_batch
+
+    meta = PyramidBatch(torch.empty((1, 32 * 32), device="meta"), ((32, 32),))
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best(meta, 20.0, 7.0)
+    pyr = build_pyramid_batch(torch.from_numpy(IMAGES["random"])[None], 2, 1.2)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr, 20.0, 7.0)

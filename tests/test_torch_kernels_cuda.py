@@ -47,3 +47,50 @@ def test_fast_kernel_refuses_bad_input(cuda):
         fast_kernel.fast_score_dual_cuda(img.double(), 20.0, 7.0)
     with pytest.raises(ValueError):
         fast_kernel.fast_score_dual_cuda(img.t()[:, :16], 20.0, 7.0)
+
+
+def _pyramid_batch(imgs, n_levels=8):
+    from lc_crf_slam_torch.ops.pyramid import build_pyramid_batch
+
+    return build_pyramid_batch(imgs, n_levels, 1.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,batch", [((480, 640), 1), ((480, 640), 3),
+                                         ((240, 320), 15), ((131, 77), 2)])
+@pytest.mark.parametrize("kind", ["random", "plateau"])
+@pytest.mark.parametrize("margin", [19, 0])
+def test_fused_cell_kernel_equals_plain(cuda, shape, batch, kind, margin):
+    """One launch for all levels of all frames: `best` bitwise, `y` and
+    `x` exact, including ties inside a cell (plateau images), all-zero
+    cells (the margin band) and ragged last rows and columns of cells."""
+    rng = np.random.default_rng(sum(shape) + batch)
+    a = rng.random((batch,) + shape)
+    a = a * 255 if kind == "random" else np.round(a * 3) * 70
+    pyr = _pyramid_batch(torch.tensor(a.astype(np.float32), device=cuda))
+    before = (fast_kernel.cell_launches, fast_kernel.launches)
+    out = fast_kernel.fast_cell_best(pyr, 20.0, 7.0, 16, margin)
+    torch.cuda.synchronize()
+    assert (fast_kernel.cell_launches, fast_kernel.launches) == (before[0] + 1, before[1])
+    ref = fast_kernel.fast_cell_best_plain(pyr, 20.0, 7.0, 16, margin)
+    assert len(out) == len(ref) == 8
+    for l, (o, r) in enumerate(zip(out, ref)):
+        for name, x, y in zip(("best", "y", "x"), o, r):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x, y), (l, name)
+    assert any(float(o[0].max()) > 0 for o in out)
+
+
+@pytest.mark.cuda
+def test_fused_cell_kernel_refuses_bad_input(cuda):
+    pyr = _pyramid_batch(torch.zeros((2, 64, 96), device=cuda), n_levels=3)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr, 20.0, 7.0, cell=8)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr, 7.0, 20.0)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat.double()), 20.0, 7.0)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat[:, :-1]), 20.0, 7.0)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat.cpu()), 20.0, 7.0)

@@ -99,8 +99,10 @@ def test_cuda_device_required_by_default():
 @pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion"])
 def test_unported_options_raise(what):
     """What the port does not run yet raises: mapping's loop-closing fuse
-    (`fuse_duplicates(loop_mode=True)`), loop closing (with the CRF and
-    mapping on, and with both off), the "direct" descriptor, distortion."""
+    (`fuse_duplicates(loop_mode=True)`), loop verification (a system with
+    loop detection on is built, with the CRF and mapping on and with both
+    off, and raises once a candidate is ready), the "direct" descriptor,
+    distortion."""
     if what == "mapping":
         from lc_crf_slam_torch.models.mapping import fuse_duplicates
         from lc_crf_slam_torch.models.mapstate import empty_map
@@ -116,5 +118,18 @@ def test_unported_options_raise(what):
         cfg = cfg.replace(orb=config.ORBConfig(descriptor_variant="direct"))
     if what == "distortion":
         cam = Pinhole(**QVGA, k1=0.1)
+    if what in ("loop", "crf"):
+        slam = SLAMSystem(cam, cfg, device="cpu", **kw)
+        assert slam.enable_loop
+        topk, F = cfg.loop.retrieval_topk, cfg.map.max_keyframes
+        cands = np.full((topk,), -1)
+        cands[0] = 2
+        groups = np.zeros((topk, F), bool)
+        groups[0, 1:4] = True
+        for kf in range(20, 20 + cfg.loop.consistency_needed - 1):
+            slam._try_close_loop(pre=(kf, True, cands, groups))
+        with pytest.raises(NotImplementedError, match="verify_loop"):
+            slam._try_close_loop(pre=(kf + 1, True, cands, groups))
+        return
     with pytest.raises(NotImplementedError):
         SLAMSystem(cam, cfg, device="cpu", **kw)

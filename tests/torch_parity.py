@@ -1,6 +1,7 @@
 """Shared fixtures for the port's parity tests (tests/test_torch_*.py):
 the small camera and configuration both packages run, rendered frames,
-and the reference's own random draws for the consensus audit."""
+the reference's own random draws for the consensus audit, and the
+run-and-compare of both packages' `track_sequence`."""
 
 import numpy as np
 import torch
@@ -10,7 +11,9 @@ import jax.numpy as jnp
 
 from lc_crf_slam_tpu.config import LoopConfig, MapConfig, SLAMConfig
 from lc_crf_slam_tpu.geometry.camera import Pinhole as RefPinhole
+from lc_crf_slam_tpu.models.system import SLAMSystem as RefSystem
 from lc_crf_slam_torch.geometry.camera import Pinhole
+from lc_crf_slam_torch.models.system import SLAMSystem
 
 # 6 xdist workers share the machine
 torch.set_num_threads(2)
@@ -25,6 +28,9 @@ CAM = Pinhole(**QVGA)
 # (4096) is a top-k over all points, so capacity must reach it
 SLICE_CFG = SLAMConfig(loop=LoopConfig(enabled=False),
                        map=MapConfig(max_points=4096))
+# the chunked path: the default configuration (loop detection on) at the
+# same small point capacity
+SEQ_CFG = SLAMConfig(map=MapConfig(max_points=4096))
 
 
 def render(world, k):
@@ -79,3 +85,87 @@ def reference_pnp_sampler(key, batched: bool = False):
         return torch.from_numpy(out.astype(np.int64)).to(n_valid.device)
 
     return sampler
+
+
+# ---- track_sequence in both packages ----------------------------------
+
+POS_TOL_M = 1e-3
+ROT_TOL_RAD = 1e-3
+
+
+def rot_angle(Ra, Rb):
+    """Rotation angle of Ra^T Rb, (N, 3, 3) each, by atan2(sin, cos)."""
+    rel = np.einsum("nji,njk->nik", Ra, Rb)
+    skew = rel - np.swapaxes(rel, 1, 2)
+    sin = 0.5 * np.linalg.norm(
+        np.stack([skew[:, 2, 1], skew[:, 0, 2], skew[:, 1, 0]], -1), axis=-1)
+    return np.arctan2(sin, (np.trace(rel, axis1=1, axis2=2) - 1) / 2)
+
+
+def assert_poses_close(a, b, pos_tol=POS_TOL_M, rot_tol=ROT_TOL_RAD, frames=None):
+    """Poses (N, 4, 4) agree within the tolerances, on all frames or on
+    those of the boolean mask `frames`."""
+    assert a.shape == b.shape
+    frames = np.ones(len(a), bool) if frames is None else frames
+    dpos = np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=-1)[frames]
+    drot = rot_angle(a[:, :3, :3], b[:, :3, :3])[frames]
+    assert dpos.max() <= pos_tol, dpos
+    assert drot.max() <= rot_tol, drot
+
+
+def stack_frames(world, ks):
+    """World frame indices -> (grays, depths, timestamps); -1 is a black
+    frame without depth."""
+    grays, depths = [], []
+    for k in ks:
+        g, d = render(world, max(k, 0))
+        grays.append(g if k >= 0 else np.zeros_like(g))
+        depths.append(d if k >= 0 else np.zeros_like(d))
+    return np.stack(grays), np.stack(depths), np.arange(len(ks)) / 30.0
+
+
+def run_sequences(world, ks, chunk, cam_ref=CAM_REF, cam=CAM, cfg=SEQ_CFG):
+    """Both packages' `track_sequence` (mapping and CRF on) over the world
+    frames `ks`: (reference system, port system, reference poses, port
+    poses)."""
+    grays, depths, ts = stack_frames(world, ks)
+    ref = RefSystem(cam_ref, cfg, enable_mapping=True, enable_crf=True)
+    port = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
+    use_reference_draws(port)
+    port.seq_phases = {}
+    poses_ref = ref.track_sequence(grays, depths, ts, chunk=chunk)
+    poses_port = port.track_sequence(grays, depths, ts, chunk=chunk)
+    return ref, port, np.asarray(poses_ref), poses_port
+
+
+def compare_sequences(ref, port, poses_ref, poses_port, n_frames, chunk,
+                      pos_tol=POS_TOL_M, rot_tol=ROT_TOL_RAD, frames=None):
+    """Poses and trajectory to 1 mm / 1 mrad (or the given tolerances, on
+    the frames of the mask `frames` (n_frames,)); keyframes, lost-frame
+    events and statuses equal; the port's stage counts as the reference's
+    cadence."""
+    assert poses_port.shape == (n_frames - 1, 4, 4)
+    assert_poses_close(poses_ref, poses_port, pos_tol, rot_tol,
+                       None if frames is None else frames[1:])
+    _, tr = ref.get_trajectory()
+    _, tp = port.get_trajectory()
+    assert_poses_close(tr, tp, pos_tol, rot_tol, frames)
+    ref.flush_stats()
+    port.flush_stats()
+    # keyframe flags (which frames inserted one) and their indices
+    assert ref.kf_log == port.kf_log
+    assert int(ref.map.n_kfs) == int(port.map.n_kfs)
+    # statuses: the lost frames of every chunk, and relocalisations
+    events = lambda s: [(e["event"], e["t"], e.get("lost_frames")) for e in s.stats
+                        if e.get("event", "").startswith("chunk_")]
+    assert events(ref) == events(port)
+    assert int(ref.ts.status) == int(port.ts.status)
+    # the stages ran where the reference runs them, counted: the first
+    # frame's keyframe initialises the map and runs none of them
+    n_chunks = -(-(n_frames - 1) // chunk)
+    assert port.n_mapping_steps == len(port.kf_log)
+    assert port.n_detect_loops == len(port.kf_log)
+    assert port.n_crf_steps == n_chunks
+    assert set(port.seq_phases) == {"frontend", "lk", "steps", "crf", "chunk_fetch",
+                                    "host_misc", "reloc_host", "loop_host"}
+    assert ref._consistent_groups == [] and port._consistent_groups == []
