@@ -32,11 +32,12 @@
    1 + chunks fused launches, and at most frames + 1 host syncs inside a
    chunk. Prints ms/frame over the 30 chunked frames beside the dynamic
    phase's, the seq_phases split and peak memory.
-   In every phase the first frame's keypoints are also selected from the
-   map kernel's score maps (`frame.score_maps`, 8 launches) and must
-   equal the fused path's.
-7. Prints the kernel report as one JSON line, the card line again, and
-   last `{"ok": true, "device": {...}}`.
+   Each phase sets the wrappers' launch counts to 0 just before it drives
+   its path and reads them just after: the map kernel is off every path
+   and must count 0 there.
+7. Prints the kernel report as one JSON line (`launches` = the three
+   paths' own, the kernel checks' launches apart), the card line again,
+   and last `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the exit code is then non-zero. Without a CUDA
 device the script exits non-zero at once.
@@ -71,12 +72,15 @@ REF_DYN_ATE_M = 0.00169054956667069
 # float32 rate outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
-# float32 operations FAST + NMS needs per pixel, as the plain version does
-# them: per threshold 2 (I +- t) + 16 circle pixels x (2 compares, 2 x 2
-# subtractions, 2 adds) + 3 (arc select, max), then 10 for the 3x3 NMS;
-# the cell reduction adds 2 compares per pixel and threshold.
-OPS_PER_PIXEL_MAPS = 2 * (2 + 16 * 8 + 3 + 10)
-OPS_PER_PIXEL_CELLS = OPS_PER_PIXEL_MAPS + 2 * 2
+# float32 operations the function needs on a given input. Every pixel: the
+# 4-pixel compass test at the low threshold, 2 (I +- t) + 4 x 2 compares +
+# 2 to combine (a pixel that fails it scores 0 at both thresholds). Every
+# pixel whose score comes out non-zero, per threshold: the full test, 2 +
+# 16 circle pixels x (2 compares, 2 x 2 subtractions, 2 adds) + 3 (arc
+# select, max), and 10 for the 3x3 NMS. The non-zero outputs of a run are
+# counted from its plain version's result.
+OPS_COMPASS = 2 + 4 * 2 + 2
+OPS_FULL = 2 + 16 * 8 + 3 + 10
 
 
 def card_line() -> str:
@@ -115,9 +119,12 @@ def cuda_ms(fn, *args, batches: int = 20, reps: int = 10):
     return tuple(out)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_pixels: int, n_scored: int):
     """(least ms the card could take, what sets it): the larger of the
-    bytes over the memory rate and the operations over the float32 rate."""
+    bytes (each input read once, each output written once) over the memory
+    rate and the operations (compass test on `n_pixels`, full test on the
+    `n_scored` non-zero scores of this run) over the float32 rate."""
+    n_ops = OPS_COMPASS * n_pixels + OPS_FULL * n_scored
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -132,6 +139,7 @@ def check_fast_kernel(images):
         hi, lo = fast_score_dual_cuda(img, 20.0, 7.0)
         ph, pl = fast_score_dual(img, 20.0, 7.0)
         torch.cuda.synchronize()
+        n_scored = int((ph > 0).sum()) + int((pl > 0).sum())
         err = max(float((hi - ph).abs().max()), float((lo - pl).abs().max()))
         if not (torch.equal(hi, ph) and torch.equal(lo, pl)):
             raise AssertionError(f"FAST kernel != plain version on {name}: "
@@ -139,7 +147,7 @@ def check_fast_kernel(images):
         ms, host_ms = cuda_ms(fast_score_dual_cuda, img, 20.0, 7.0)
         plain_ms, plain_host_ms = cuda_ms(fast_score_dual, img, 20.0, 7.0,
                                           batches=5, reps=2)
-        rows.append((name, tuple(img.shape), err, ms, plain_ms))
+        rows.append((name, tuple(img.shape), err, ms, plain_ms, n_scored))
         print(f"fast_nms {name:>13} {tuple(img.shape)}: bitwise equal; device "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; host-bound kernel "
               f"{host_ms:.4f} ms, plain {plain_host_ms:.4f} ms")
@@ -160,7 +168,7 @@ def check_cell_kernel(name, grays, cfg):
     out = fast_cell_best_cuda(*args)
     ref = fast_cell_best_plain(*args)
     torch.cuda.synchronize()
-    err, n_cells, n_corners = 0.0, 0, 0
+    err, n_cells, n_corners = 0.0, 0, 0     # corners: cells with a non-zero best
     for l, (o, r) in enumerate(zip(out, ref)):
         err = max(err, float((o[0] - r[0]).abs().max()))
         for what, a, b in zip(("best", "y", "x"), o, r):
@@ -174,13 +182,11 @@ def check_cell_kernel(name, grays, cfg):
     plain_ms, _ = cuda_ms(fast_cell_best_plain, *args, batches=3,
                           reps=2 if B == 1 else 1)
     n_pixels = pyr.flat.numel()
-    b_ms, b_by = bound(4 * n_pixels + 12 * n_cells, OPS_PER_PIXEL_CELLS * n_pixels)
-    bytes_ms = (4 * n_pixels + 12 * n_cells) / PEAK_BYTES_S * 1e3
+    b_ms, b_by = bound(4 * n_pixels + 12 * n_cells, n_pixels, n_corners)
     print(f"fast_cells {name} (B={B}, {n_pixels} pixels, {n_cells} cells, "
           f"{n_corners} with a corner): best bitwise equal, y/x equal; device "
           f"kernel {ms:.4f} ms ({ms / B:.4f} a frame), host-bound {host_ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms by {b_by} (bytes alone "
-          f"{bytes_ms:.5f} ms)")
+          f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms by {b_by}")
     return {"B": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -195,65 +201,25 @@ def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray) -> float:
     return float(torch.sqrt(torch.mean(err ** 2)))
 
 
-class Launches:
-    """Kernel launches of the main path, summed over the phases: each
-    phase sets the wrappers' counts to 0 before it runs and adds them
-    after."""
-
-    def __init__(self):
-        self.cells = 0
-        self.maps = 0
-
-    def reset(self):
-        from lc_crf_slam_torch.ops import fast_kernel
-        fast_kernel.reset_launches()
-
-    def take(self):
-        """(fused launches, map launches) since reset, added to the sums."""
-        from lc_crf_slam_torch.ops import fast_kernel
-        self.cells += fast_kernel.cell_launches
-        self.maps += fast_kernel.launches
-        return fast_kernel.cell_launches, fast_kernel.launches
-
-
-def crosscheck_frontend(slam, gray, depth) -> None:
-    """The keypoints `build_frame` takes from the fused kernel equal those
-    selected from the map kernel's score maps (`frame.score_maps`)."""
-    from lc_crf_slam_torch.models.frame import build_frame, score_maps
-    from lc_crf_slam_torch.ops.pyramid import features_per_level
-    from lc_crf_slam_torch.ops.select import select_keypoints
-
-    orb = slam.cfg.orb
-    gray, depth = slam._upload(gray), slam._upload(depth)
-    frame = build_frame(slam.cam, slam.cfg, gray, depth)
-    quotas = features_per_level(orb.max_keypoints, orb.n_levels, orb.scale_factor)
-    uv, valid = [], []
-    for l, (hi, lo) in enumerate(score_maps(slam.cfg, gray)):
-        uv_l, _, val_l = select_keypoints(hi, lo, quotas[l], cell=orb.cell_size,
-                                          margin=orb.edge_margin)
-        uv.append(uv_l.to(torch.float32) * (orb.scale_factor ** l))
-        valid.append(val_l)
-    uv, valid = torch.cat(uv), torch.cat(valid)
-    if not (torch.equal(valid, frame.valid)
-            and torch.equal(torch.where(valid[:, None], uv, 0.0), frame.uv)):
-        raise AssertionError("front-end cross-check: the fused kernel's keypoints "
-                             "differ from those of the map kernel's score maps")
-
-
 def count_syncs(caught) -> int:
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def drive(slam, frames, counted, launches):
+def path_launches():
+    """(fused, map) kernel launches since `fast_kernel.reset_launches()`."""
+    from lc_crf_slam_torch.ops import fast_kernel
+    return fast_kernel.cell_launches, fast_kernel.launches
+
+
+def drive(slam, frames, counted):
     """Every frame through `slam.track_rgbd`, each timed to a synchronize:
     (ms per frame, {frame: host syncs} for the frames in `counted`, counted
-    in torch's sync debug mode, (fused, map) kernel launches, peak device
-    MiB). The first frame's front-end is cross-checked against the map
-    kernel first."""
+    in torch's sync debug mode, (fused, map) kernel launches of the path,
+    peak device MiB)."""
+    from lc_crf_slam_torch.ops import fast_kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches.reset()
-    crosscheck_frontend(slam, frames[0].image, frames[0].depth_image)
+    fast_kernel.reset_launches()
     frame_ms, syncs = [], {}
     for k, f in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
@@ -266,22 +232,22 @@ def drive(slam, frames, counted, launches):
             frame_ms.append((time.perf_counter() - t0) * 1e3)
         if k in counted:
             syncs[k] = count_syncs(caught)
-    return (frame_ms, syncs, launches.take(),
+    return (frame_ms, syncs, path_launches(),
             torch.cuda.max_memory_allocated() / 2**20)
 
 
-def check_launches(phase, got, n_fused, n_levels):
-    """`got` = (fused, map) launches of a phase: the fused kernel as often
-    as the path asks for it (+1 for the cross-check's build_frame), the
-    map kernel once per level in the cross-check."""
-    if got != (n_fused + 1, n_levels):
+def check_launches(phase, got, n_fused):
+    """`got` = (fused, map) launches of a phase's path: the fused kernel as
+    often as the path asks for it, the map kernel never."""
+    if got != (n_fused, 0):
         raise AssertionError(
             f"{phase}: kernel launches (fused, map) = {got}, expected "
-            f"({n_fused} + 1 for the cross-check, {n_levels})")
+            f"({n_fused}, 0)")
 
 
-def tracking_phase(cam, frames, world, launches) -> None:
-    """The tracking slice at full width (see the module docstring, step 4)."""
+def tracking_phase(cam, frames, world) -> int:
+    """The tracking slice at full width (see the module docstring, step 4);
+    returns the path's fused-kernel launches."""
     from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
 
@@ -290,7 +256,7 @@ def tracking_phase(cam, frames, world, launches) -> None:
                       device="cuda")
     # frames 10-11 count their host syncs (the design has one: the
     # keyframe decision fetch)
-    frame_ms, syncs, got, peak_mb = drive(slam, frames, (10, 11), launches)
+    frame_ms, syncs, got, peak_mb = drive(slam, frames, (10, 11))
 
     slam.flush_stats()
     _, poses = slam.get_trajectory()
@@ -308,18 +274,20 @@ def tracking_phase(cam, frames, world, launches) -> None:
           f"{np.mean(inliers):.1f}, lost frames {statuses.count(2)}, "
           f"kernel launches (fused, map) {got}, peak memory {peak_mb:.0f} MiB, "
           f"host syncs per frame {list(syncs.values())}")
-    check_launches("tracking phase", got, N_FRAMES, cfg.orb.n_levels)
+    check_launches("tracking phase", got, N_FRAMES)
     if 2 in statuses:
         raise AssertionError(f"tracking lost: statuses {statuses}")
     if n_kfs < 2:
         raise AssertionError(f"only {n_kfs} keyframes")
     if not ate < ATE_BAR_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_BAR_M} m")
+    return got[0]
 
 
-def dynamic_phase(cam, frames, world, launches) -> float:
+def dynamic_phase(cam, frames, world):
     """The per-frame dynamic pipeline at full width (see the module
-    docstring, step 5); returns its median ms/frame."""
+    docstring, step 5); returns (the path's fused-kernel launches, its
+    mean ms/frame after the first frame)."""
     from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
 
@@ -327,7 +295,7 @@ def dynamic_phase(cam, frames, world, launches) -> float:
     slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
                       device="cuda")
     # from the 4th frame on, count every frame's host syncs
-    frame_ms, syncs, got, peak_mb = drive(slam, frames, range(3, DYN_FRAMES), launches)
+    frame_ms, syncs, got, peak_mb = drive(slam, frames, range(3, DYN_FRAMES))
 
     slam.flush_stats()
     _, poses = slam.get_trajectory()
@@ -359,7 +327,7 @@ def dynamic_phase(cam, frames, world, launches) -> float:
           f"from the 4th {list(syncs.values())}")
     print(f"dynamic: last frame n_dynamic {last['n_dynamic']}, n_tracks "
           f"{last['crf_tracks']}")
-    check_launches("dynamic phase", got, DYN_FRAMES, cfg.orb.n_levels)
+    check_launches("dynamic phase", got, DYN_FRAMES)
     if 2 in statuses:
         raise AssertionError(f"dynamic phase: tracking lost: statuses {statuses}")
     if n_kfs < 2:
@@ -376,13 +344,14 @@ def dynamic_phase(cam, frames, world, launches) -> float:
                              f"non-keyframe frame {other_at[0]}, expected 1")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"dynamic phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return float(np.mean(frame_ms[1:]))
+    return got[0], float(np.mean(frame_ms[1:]))
 
 
-def sequence_phase(cam, frames, world, launches, dyn_ms: float) -> None:
+def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
     """The chunked throughput path at full width (see the module
-    docstring, step 6)."""
+    docstring, step 6); returns the path's fused-kernel launches."""
     from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.models.system import SLAMSystem
 
     cfg = SLAMConfig()          # loop detection on
@@ -415,11 +384,10 @@ def sequence_phase(cam, frames, world, launches, dyn_ms: float) -> None:
     slam._track_chunk = counted_chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches.reset()
-    crosscheck_frontend(slam, frames[0].image, frames[0].depth_image)
+    fast_kernel.reset_launches()
     poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
     torch.cuda.synchronize()
-    got = launches.take()
+    got = path_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     n_seq = DYN_FRAMES - 1      # the first frame goes through track_rgbd
@@ -451,7 +419,7 @@ def sequence_phase(cam, frames, world, launches, dyn_ms: float) -> None:
           f"{slam.n_crf_steps}, kernel launches (fused, map) {got}, host syncs per "
           f"chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames, "
           f"peak memory {peak_mb:.0f} MiB")
-    check_launches("sequence phase", got, 1 + n_chunks, cfg.orb.n_levels)
+    check_launches("sequence phase", got, 1 + n_chunks)
     if n_lost or int(slam.ts.status) != 1:
         raise AssertionError(f"sequence phase: {n_lost} lost frames, final status "
                              f"{int(slam.ts.status)}")
@@ -471,6 +439,7 @@ def sequence_phase(cam, frames, world, launches, dyn_ms: float) -> None:
                                  f"of {n} frames, at most {n + 1} allowed")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
+    return got[0]
 
 
 def main() -> int:
@@ -527,21 +496,26 @@ def main() -> int:
     cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
 
     # ---- the three phases at full width ------------------------------------
-    launches = Launches()
-    tracking_phase(cam, frames, world, launches)
-    dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world, launches)
-    sequence_phase(cam, dyn_frames, dyn_world, launches, dyn_ms)
+    by_path = {"tracking": tracking_phase(cam, frames, world)}
+    by_path["dynamic"], dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world)
+    by_path["sequence"] = sequence_phase(cam, dyn_frames, dyn_world, dyn_ms)
+    if min(by_path.values()) < 1:
+        raise AssertionError(f"a path never launched the fused kernel: {by_path}")
 
     # ---- report ------------------------------------------------------------
     level_rows = [r for r in rows if r[0].startswith("level")]
     n_pixels = sum(r[1][0] * r[1][1] for r in level_rows)
-    maps_bound_ms, maps_bound_by = bound(12 * n_pixels, OPS_PER_PIXEL_MAPS * n_pixels)
+    maps_bound_ms, maps_bound_by = bound(12 * n_pixels, n_pixels,
+                                         sum(r[5] for r in level_rows))
     report = {"kernels": [{
         "name": "fast_cell_best",
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_cells.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        "launches": launches.cells,
+        # the three paths' own launches, each counted from 0 (no launch of
+        # the kernel checks above is among them)
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max(cells_b1["max_abs_err"], cells_b15["max_abs_err"]),
         # one launch for a chunk of 15 frames (the throughput path's shape)
         "ms": cells_b15["ms"],
@@ -557,8 +531,9 @@ def main() -> int:
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_nms.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        # the phases' front-end cross-checks: 8 levels each
-        "launches": launches.maps,
+        # off every path (each phase asserts 0): only the check above
+        # launches it
+        "launches": 0,
         "max_abs_err": max(r[2] for r in rows),
         # one frame's maps: the sum over the 8 pyramid level shapes
         "ms": sum(r[3] for r in level_rows),
@@ -567,9 +542,6 @@ def main() -> int:
         "bound_by": maps_bound_by,
         "library_ms": None,     # no single PyTorch call computes it
     }]}
-    for k in report["kernels"]:
-        if k["launches"] < 1:
-            raise AssertionError(f"kernel {k['name']} was never launched by the phases")
     print(card_line())
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

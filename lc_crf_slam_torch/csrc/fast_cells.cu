@@ -22,8 +22,8 @@
 // ~3.9 k cells x 12 B written: about 1.1 us at the card's memory rate
 // (writing both maps cost another 7.6 MB, and one launch a level about
 // 5.5 us each), and about 4 us of float32 work if every pixel took the full
-// test. Measured on one H100 80GB HBM3 at 700 W (utils/fast_tune.py):
-// 0.038 ms for one frame, 0.48 ms for a chunk of 15, so the instruction
+// test. Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py):
+// 0.038 ms for one frame, 0.49 ms for a chunk of 15, so the instruction
 // count per pixel is what the card waits for, not the bytes. Design: the
 // pyramid of the whole batch lies in one buffer; the level table travels
 // by value with the launch (no copy, no sync); blockIdx.x counts the tiles
@@ -38,19 +38,15 @@
 // dense warps instead of in every warp that holds one survivor. NMS and
 // the margin mask follow, and each cell is reduced by warp shuffles (16
 // lanes = one cell row) and one pass over the 16 row results in shared
-// memory: no global atomics, no second launch. The block is held to
-// LC_MIN_BLOCKS resident blocks per SM by its register count. Loads are
-// scalar: level rows are not 16-byte aligned in general (W = 533, 444...).
+// memory: no global atomics, no second launch. The block's register count
+// is held to 3 resident blocks per SM (1, 2 and 4 timed within 5% of it on
+// that card). Loads are scalar: level rows are not 16-byte aligned in general (W = 533, 444...).
 
 #include "fast_common.cuh"
 
 namespace {
 
 using namespace lc_fast;
-
-#ifndef LC_MIN_BLOCKS
-#define LC_MIN_BLOCKS 3
-#endif
 
 constexpr int kCell = 16;
 constexpr int kCellsPerTile = kTileW / kCell;
@@ -85,7 +81,7 @@ __device__ __forceinline__ void reduce16(float& v, int& i) {
   }
 }
 
-__global__ void __launch_bounds__(kTileW* kTileH, LC_MIN_BLOCKS)
+__global__ void __launch_bounds__(kTileW* kTileH, 3)
     fast_cell_best_kernel(const float* __restrict__ img,
                           float* __restrict__ out_best, int* __restrict__ out_y,
                           int* __restrict__ out_x, const LevelTable tab,

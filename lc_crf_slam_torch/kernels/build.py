@@ -41,34 +41,32 @@ def kernel_names() -> list:
                   for p in glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _paths(name: str, tag: str = ""):
+def _paths(name: str):
     return (os.path.join(CSRC_DIR, f"{name}.cu"),
-            os.path.join(BUILD_DIR, f"lib{name}{tag}.so"))
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
-def _stale(name: str, tag: str = "") -> bool:
-    src, out = _paths(name, tag)
+def _stale(name: str) -> bool:
+    src, out = _paths(name)
     if not os.path.exists(out):
         return True
     deps = [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
     return os.path.getmtime(out) < max(os.path.getmtime(d) for d in deps)
 
 
-def build_all(names: Optional[Iterable[str]] = None, flags=(), tag: str = "") -> dict:
+def build_all(names: Optional[Iterable[str]] = None) -> dict:
     """Compile every stale `csrc/<name>.cu` into
-    `build/torch_kernels/lib<name><tag>.so`, all nvcc processes started
-    together; returns {name: compiler output} of what was built. `flags`
-    are extra nvcc flags (e.g. `-Xptxas -v`, or a `-D` setting that `tag`
-    names)."""
+    `build/torch_kernels/lib<name>.so`, all nvcc processes started
+    together; returns {name: compiler output} of what was built."""
     procs = {}
     for name in (kernel_names() if names is None else names):
-        if not _stale(name, tag):
+        if not _stale(name):
             continue
-        src, out = _paths(name, tag)
+        src, out = _paths(name)
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         procs[name] = (tmp, out, src, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for name, (tmp, out, src, proc) in procs.items():
@@ -83,7 +81,7 @@ def build_all(names: Optional[Iterable[str]] = None, flags=(), tag: str = "") ->
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, flags=(), tag: str = "") -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (if missing or stale) and load it."""
-    build_all([name], flags, tag)
-    return ctypes.CDLL(_paths(name, tag)[1])
+    build_all([name])
+    return ctypes.CDLL(_paths(name)[1])

@@ -15,14 +15,14 @@ import torch
 
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole, undistort_pixels
-from ..ops.fast_kernel import fast_cell_best, fast_score_dual_nms
+from ..ops.fast_kernel import fast_cell_best
 from ..ops.orb import (
     PATCH_MARGIN,
     _gather_patches,
     brief_descriptors_matmul,
     ic_angles_from_patches,
 )
-from ..ops.pyramid import build_pyramid, build_pyramid_batch, features_per_level
+from ..ops.pyramid import build_pyramid_batch, features_per_level
 from ..ops.select import select_from_cells
 
 
@@ -52,16 +52,6 @@ def orient_and_describe(cfg: SLAMConfig, img_l: torch.Tensor, uv_l: torch.Tensor
     patches_l = _gather_patches(img_l, uv_l, PATCH_MARGIN + 3)
     ang_l = ic_angles_from_patches(patches_l)
     return ang_l, brief_descriptors_matmul(patches_l, ang_l)
-
-
-def score_maps(cfg: SLAMConfig, gray: torch.Tensor):
-    """The dual NMS'd FAST score maps of every pyramid level of one image,
-    [(score_high, score_low)]: what `build_frames` reduces to cells without
-    writing it. For looking at the detector (one launch of the map kernel
-    per level on the card)."""
-    orb = cfg.orb
-    return [fast_score_dual_nms(img, float(orb.ini_th_fast), float(orb.min_th_fast))
-            for img in build_pyramid(gray, orb.n_levels, orb.scale_factor)]
 
 
 def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,

@@ -89,12 +89,10 @@ def fast_score_dual_nms(img: torch.Tensor, th_high: float, th_low: float):
 
 
 @functools.lru_cache(maxsize=None)
-def _cells_lib(flags=(), tag: str = ""):
-    """The fused kernel's C entry; `flags`/`tag` build a variant (a `-D`
-    setting) beside the default, for `utils/fast_tune.py`."""
+def _cells_lib():
     from ..kernels.build import load
 
-    fn = load("fast_cells", flags, tag).fast_cell_best
+    fn = load("fast_cells").fast_cell_best
     ints = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

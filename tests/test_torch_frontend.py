@@ -15,9 +15,9 @@ from lc_crf_slam_tpu.ops import select as ref_select_mod
 from lc_crf_slam_tpu.ops.select import select_keypoints as ref_select
 from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
 from lc_crf_slam_torch._ops import popcount32, u32_to_i32
-from lc_crf_slam_torch.models.frame import build_frame, build_frames, score_maps
+from lc_crf_slam_torch.models.frame import build_frame, build_frames
 from lc_crf_slam_torch.ops import orb, pyramid
-from lc_crf_slam_torch.ops.fast_kernel import fast_cell_best
+from lc_crf_slam_torch.ops.fast_kernel import fast_cell_best, fast_score_dual_nms
 from lc_crf_slam_torch.ops.select import cell_best, select_from_cells, select_keypoints
 
 from torch_parity import CAM, CAM_REF, SLICE_CFG, render
@@ -240,7 +240,9 @@ def test_fused_cells_equal_selection_from_score_maps(qvga_batch):
     cells = fast_cell_best(pyr, float(orb.ini_th_fast), float(orb.min_th_fast),
                            orb.cell_size, orb.edge_margin)
     quotas = pyramid.features_per_level(orb.max_keypoints, orb.n_levels, orb.scale_factor)
-    for l, (hi, lo) in enumerate(score_maps(SLICE_CFG, grays[0])):
+    levels = pyramid.build_pyramid(grays[0], orb.n_levels, orb.scale_factor)
+    for l, img in enumerate(levels):
+        hi, lo = fast_score_dual_nms(img, float(orb.ini_th_fast), float(orb.min_th_fast))
         ref = select_keypoints(hi, lo, quotas[l], orb.cell_size, orb.edge_margin)
         out = select_from_cells(*(t[0] for t in cells[l]), quotas[l])
         for a, b in zip(ref, out):
