@@ -32,10 +32,32 @@
    1 + chunks fused launches, and at most frames + 1 host syncs inside a
    chunk. Prints ms/frame over the 30 chunked frames beside the dynamic
    phase's, the seq_phases split and peak memory.
+7. Loop phase: the reference's default-config loop world (a 1.2-turn pan
+   over a textured wall with depth noise) at 640x480, 130 frames, default
+   SLAMConfig and map capacities, through `track_sequence(chunk=15)`. The
+   revisit must close a loop: checks >= 1 entry in `loop_log`, finite
+   poses, >= 1 global-BA slice run and none pending after
+   `get_trajectory()`, every live point's observation count equal to the
+   recount of the observation table, ATE < 0.35 m, the keyframes'
+   ATE after the closure no worse than 1.1 x the same keyframes' just
+   before the first `correct_loop`, 1 + chunks fused launches, and at
+   most frames + 1 host syncs per chunk plus one per verified candidate
+   (and three per relocalisation attempt). Lost frames: none before the
+   first closure, and tracking is back by the end. A closure re-anchors
+   the tracker on its reference keyframe's pose with zero velocity, as
+   the reference does; inside a chunk that keyframe lies a few frames
+   (~10 degrees of this pan) back, the next chunk loses track, and
+   relocalisation recovers it at a chunk boundary (the reference loses
+   the same chunk: tests/test_torch_loop_close.py, slow). Those frames
+   are counted and printed, not hidden.
+   Prints, each line beside the card's name and power limit: ms/frame,
+   the ms of every `verify_loop`, `correct_loop`, `global_ba` slice and
+   group-wide `search_and_fuse` (a synchronize on both sides), `loop_log`,
+   keyframes, both ATEs and peak memory.
    Each phase sets the wrappers' launch counts to 0 just before it drives
    its path and reads them just after: the map kernel is off every path
    and must count 0 there.
-7. Prints the kernel report as one JSON line (`launches` = the three
+8. Prints the kernel report as one JSON line (`launches` = the four
    paths' own, the kernel checks' launches apart), the card line again,
    and last `{"ok": true, "device": {...}}`.
 
@@ -62,6 +84,9 @@ ATE_BAR_M = 0.01
 DYN_FRAMES = 31
 DYN_ATE_BAR_M = 0.02      # the reference's bar for its full pipeline
 SEQ_CHUNK = 15
+LOOP_FRAMES = 130
+LOOP_ATE_BAR_M = 0.35     # the reference's bar for this world in throughput mode
+LOOP_KF_ATE_FACTOR = 1.1  # keyframes' ATE after the closure vs just before it
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
@@ -347,6 +372,43 @@ def dynamic_phase(cam, frames, world):
     return got[0], float(np.mean(frame_ms[1:]))
 
 
+def count_chunks(slam) -> list:
+    """Wrap `slam._track_chunk` so that every chunk runs in torch's sync
+    debug mode and is timed to a synchronize; the returned list fills with
+    (frames, host syncs, ms, (loop candidates verified, relocalisation
+    attempts), the chunk's last frame if it closed a loop else None) per
+    chunk."""
+    chunks = []
+    inner = slam._track_chunk
+
+    def rare():
+        return (slam.n_verify_loops, len(slam.loop_log),
+                sum(s.get("event") == "chunk_lost" for s in slam.stats))
+
+    def counted_chunk(g, d, t):
+        torch.cuda.synchronize()
+        before = rare()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = inner(g, d, t)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            after = rare()
+            # a chunk that ends lost may try to relocalise at its boundary
+            chunks.append((len(t), count_syncs(caught),
+                           (time.perf_counter() - t0) * 1e3,
+                           (after[0] - before[0], after[2] - before[2]),
+                           round(float(t[-1]) * 30.0) if after[1] > before[1] else None))
+        return out
+
+    slam._track_chunk = counted_chunk
+    return chunks
+
+
 def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
     """The chunked throughput path at full width (see the module
     docstring, step 6); returns the path's fused-kernel launches."""
@@ -362,26 +424,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
     depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
     stamps = [f.timestamp for f in frames]
 
-    # every chunk: host syncs in torch's sync debug mode, time to a synchronize
-    chunks = []     # (frames, syncs, ms)
-    inner = slam._track_chunk
-
-    def counted_chunk(g, d, t):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            t0 = time.perf_counter()
-            try:
-                out = inner(g, d, t)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            chunks.append((len(t), count_syncs(caught),
-                           (time.perf_counter() - t0) * 1e3))
-        return out
-
-    slam._track_chunk = counted_chunk
+    chunks = count_chunks(slam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fast_kernel.reset_launches()
@@ -433,12 +476,176 @@ def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
     if slam.n_crf_steps != n_chunks or len(chunks) != n_chunks:
         raise AssertionError(f"sequence phase: {slam.n_crf_steps} crf_step calls "
                              f"for {n_chunks} chunks")
-    for n, syncs, _ in chunks:
+    for n, syncs, *_ in chunks:
         if syncs > n + 1:
             raise AssertionError(f"sequence phase: {syncs} host syncs in a chunk "
                                  f"of {n} frames, at most {n + 1} allowed")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
+    return got[0]
+
+
+def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
+    """ATE of the keyframes `which` (bool mask) against the ground truth
+    at their timestamps."""
+    Twc = np.linalg.inv(kf_Tcw[which].astype(np.float64))
+    at = np.abs(kf_time[which][:, None] - gt_times[None, :]).argmin(axis=1)
+    return ate_rmse(Twc, gt_twc[at])
+
+
+def loop_phase(cam) -> int:
+    """Loop closing at full width (see the module docstring, step 7);
+    returns the path's fused-kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models import system
+    from lc_crf_slam_torch.ops import fast_kernel
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    t0 = time.perf_counter()
+    world = SyntheticWorld(cam=cam, n_frames=LOOP_FRAMES, n_static=900, n_dynamic=0,
+                           seed=5, trajectory="pan", wall=True, pan_leadin=0.1,
+                           pan_turns=1.2, pan_translation=0.25,
+                           render_depth_noise=0.015)
+    frames = [world.frame(k, render=True) for k in range(LOOP_FRAMES)]
+    grays = np.stack([f.image for f in frames]).astype(np.float32)
+    depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
+    stamps = [f.timestamp for f in frames]
+    gt_times, gt = world.groundtruth()
+    card = card_line()
+    print(f"loop: rendered {LOOP_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+
+    slam = system.SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
+                             device="cuda")
+    slam.seq_phases = {}
+
+    # every closure stage timed to a synchronize on both sides; the timers'
+    # own device reads stay out of the chunks' sync counts
+    stage_ms = {"verify_loop": [], "correct_loop": [], "global_ba": [],
+                "search_and_fuse": []}
+    before = {}     # the keyframes just before the first correct_loop
+
+    def timed(name):
+        inner = getattr(system, name)
+
+        def stage(*args):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            if name == "correct_loop" and not before:
+                m = args[2]
+                n = int(m.n_kfs)
+                before.update(Tcw=m.kf_Tcw[:n].cpu().numpy(),
+                              time=m.kf_time[:n].cpu().numpy(),
+                              alive=m.kf_alive[:n].cpu().numpy())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            stage_ms[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.set_sync_debug_mode(mode)
+            return out
+
+        setattr(system, name, stage)
+        return inner
+
+    originals = {name: timed(name) for name in stage_ms}
+    chunks = count_chunks(slam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_kernel.reset_launches()
+    try:
+        poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
+        torch.cuda.synchronize()
+        got = path_launches()
+        slices_in_run = slam._gba_slices_run
+        slam.flush_stats()
+        _, poses = slam.get_trajectory()        # finishes a pending global BA
+    finally:
+        for name, fn in originals.items():
+            setattr(system, name, fn)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    n_seq = LOOP_FRAMES - 1
+    n_chunks = -(-n_seq // SEQ_CHUNK)
+    if poses.shape != (LOOP_FRAMES, 4, 4) or not np.all(np.isfinite(poses)) \
+            or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
+        raise AssertionError(f"loop phase: bad trajectory, shapes {poses.shape} "
+                             f"{poses_tcw.shape}")
+    ate = ate_rmse(poses, gt)
+    n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
+                 if s.get("event") == "chunk_lost")
+    m = slam.map
+    n_kfs = int(m.n_kfs)
+    ms_frame = sum(c[2] for c in chunks) / n_seq
+    print(f"loop [{card}]: {n_seq} chunked frames in {n_chunks} chunks of {SEQ_CHUNK}: "
+          f"{ms_frame:.2f} ms/frame (chunks {[round(c[2], 1) for c in chunks]} ms)")
+    print(f"loop [{card}]: seq_phases, host ms/frame: " + ", ".join(
+        f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items()))
+    for name, ms in stage_ms.items():
+        print(f"loop [{card}]: {name} x{len(ms)}: ms {[round(t, 1) for t in ms]}")
+    print(f"loop [{card}]: loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops}, "
+          f"global-BA slices {slam._gba_slices_run} ({slices_in_run} inside the run), "
+          f"keyframes {n_kfs}, lost frames {n_lost}, kernel launches (fused, map) "
+          f"{got}, host syncs per chunk {[c[1] for c in chunks]} with "
+          f"{[c[3] for c in chunks]} (verified candidates, relocalisation attempts), "
+          f"peak memory {peak_mb:.0f} MiB")
+    failures = []
+    try:
+        check_launches("loop phase", got, 1 + n_chunks)
+    except AssertionError as e:
+        failures.append(str(e))
+    if not slam.loop_log:
+        failures.append("no loop was closed")
+    # lost frames: none in a chunk that no closure preceded
+    lost_at = [round(s["t"] * 30.0) for s in slam.stats if s.get("event") == "chunk_lost"]
+    closed_at = [c[4] for c in chunks if c[4] is not None]
+    first_closure = min(closed_at, default=LOOP_FRAMES)
+    if any(k <= first_closure for k in lost_at) or int(slam.ts.status) != 1:
+        failures.append(f"chunks ending at frames {lost_at} lost frames, the first "
+                        f"closure came after frame {first_closure}, final status "
+                        f"{int(slam.ts.status)}")
+    if slam._gba_slices_run < 1 or slam._gba_pending is not None:
+        failures.append(f"{slam._gba_slices_run} global-BA slices, pending "
+                        f"{slam._gba_pending}")
+    if len(chunks) != n_chunks:
+        failures.append(f"{len(chunks)} chunks, expected {n_chunks}")
+    for n, syncs, _, (verified, relocs), _ in chunks:
+        allowed = n + 1 + verified + 3 * relocs
+        if syncs > allowed:
+            failures.append(f"{syncs} host syncs in a chunk of {n} frames with "
+                            f"{verified} verified candidates and {relocs} "
+                            f"relocalisation attempts, at most {allowed} allowed")
+
+    # every live point's observation count equals the weighted recount of
+    # the live keyframes' observation table (a depth-backed entry counts 2)
+    kf_alive = m.kf_alive.cpu().numpy()
+    obs = m.kf_obs.cpu().numpy()[kf_alive]
+    valid = m.kf_valid.cpu().numpy()[kf_alive] & (obs >= 0)
+    w = 1 + (m.kf_ur.cpu().numpy()[kf_alive] >= 0).astype(np.int64)
+    P = m.capacity_points
+    recount = np.bincount(obs[valid].ravel(), weights=w[valid].ravel(),
+                          minlength=P)[:P].astype(np.int64)
+    stale = m.p_alive.cpu().numpy() & (m.p_n_obs.cpu().numpy() != recount)
+    if stale.any():
+        failures.append(f"{int(stale.sum())} live points whose observation count "
+                        f"differs from the recount")
+
+    # the keyframes that were alive just before the first correct_loop and
+    # still are: their ATE then and now
+    n0 = len(before["alive"])
+    same = before["alive"] & kf_alive[:n0]
+    ate_before = keyframe_ate(before["Tcw"], before["time"], same, gt_times, gt)
+    ate_after = keyframe_ate(m.kf_Tcw[:n0].cpu().numpy(), before["time"], same,
+                             gt_times, gt)
+    print(f"loop [{card}]: ATE {ate:.5f} m over {LOOP_FRAMES} frames; the {int(same.sum())} "
+          f"keyframes alive at the first closure: ATE {ate_before:.5f} m just before "
+          f"it, {ate_after:.5f} m at the end; {int(m.p_alive.sum())} live points")
+    if not ate < LOOP_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {LOOP_ATE_BAR_M} m")
+    if not ate_after <= LOOP_KF_ATE_FACTOR * ate_before:
+        failures.append(f"keyframe ATE {ate_after} m after the closure > "
+                        f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
+    if failures:
+        raise AssertionError("loop phase: " + "; ".join(failures))
     return got[0]
 
 
@@ -495,10 +702,11 @@ def main() -> int:
     cells_b1 = check_cell_kernel("one frame", chunk_grays[:1], cfg)
     cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
 
-    # ---- the three phases at full width ------------------------------------
+    # ---- the four phases at full width ------------------------------------
     by_path = {"tracking": tracking_phase(cam, frames, world)}
     by_path["dynamic"], dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world)
     by_path["sequence"] = sequence_phase(cam, dyn_frames, dyn_world, dyn_ms)
+    by_path["loop"] = loop_phase(cam)
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the fused kernel: {by_path}")
 
@@ -512,7 +720,7 @@ def main() -> int:
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_cells.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        # the three paths' own launches, each counted from 0 (no launch of
+        # the four paths' own launches, each counted from 0 (no launch of
         # the kernel checks above is among them)
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,

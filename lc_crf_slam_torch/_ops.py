@@ -8,7 +8,8 @@
   indexed writes raise on an out-of-range index, so these helpers write
   into a copy with one extra dump row and cut it off again. Negative
   indices are dropped too (the reference never passes one to a drop-mode
-  write: JAX would wrap it). `scatter_min` is `.at[idx].min(mode="drop")`.
+  write: JAX would wrap it). `scatter_min` / `scatter_max` are
+  `.at[idx].min/.max(mode="drop")`.
 - Popcount of int32 words (descriptors are int32 bit-views of the
   reference's uint32 words) as a SWAR reduction in int64.
 """
@@ -75,13 +76,22 @@ def scatter_add(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return out.index_add_(0, _dump_index(idx, n), v)[:n]
 
 
-def scatter_min(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """`arr.at[idx].min(val, mode="drop")` along axis 0 of a 1-D arr."""
+def _scatter_reduce(arr, idx, val, reduce: str) -> torch.Tensor:
     n = arr.shape[0]
     out = _with_dump_row(arr)
     v = as_value(val, arr).expand(idx.shape)
-    return out.scatter_reduce_(0, _dump_index(idx, n), v, "amin",
+    return out.scatter_reduce_(0, _dump_index(idx, n), v, reduce,
                                include_self=True)[:n]
+
+
+def scatter_min(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """`arr.at[idx].min(val, mode="drop")` along axis 0 of a 1-D arr."""
+    return _scatter_reduce(arr, idx, val, "amin")
+
+
+def scatter_max(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """`arr.at[idx].max(val, mode="drop")` along axis 0 of a 1-D arr."""
+    return _scatter_reduce(arr, idx, val, "amax")
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

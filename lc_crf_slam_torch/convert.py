@@ -2,7 +2,8 @@
 
 The system has no learned weights; its state is the map, the tracking
 state and the frame. These helpers turn a reference `MapState` /
-`TrackState` / `Frame` / `BAProblem` / `LoopCandidate` (any NamedTuple of arrays, read
+`TrackState` / `Frame` / `BAProblem` / `LoopCandidate` / `LoopVerification` /
+`PoseGraph` (any NamedTuple of arrays, read
 with `np.asarray`; a map state at any point of the pipeline, mapping
 included) into the port's tensors, and a port state back into numpy
 arrays, so a test can run the reference for a few frames, continue in
@@ -20,8 +21,9 @@ import torch
 
 from ._ops import i32_to_u32, u32_to_i32
 from .models.frame import Frame
-from .models.loopclosing import LoopCandidate
+from .models.loopclosing import LoopCandidate, LoopVerification
 from .models.mapstate import MapState
+from .models.posegraph import PoseGraph
 from .models.tracking import TrackState
 from .ops.schur import BAProblem
 
@@ -55,6 +57,14 @@ def ba_problem_to_torch(prob, device: str | torch.device = "cpu") -> BAProblem:
 
 def loop_candidate_to_torch(lc, device: str | torch.device = "cpu") -> LoopCandidate:
     return _convert(lc, LoopCandidate, device)
+
+
+def loop_verification_to_torch(ver, device: str | torch.device = "cpu") -> LoopVerification:
+    return _convert(ver, LoopVerification, device)
+
+
+def pose_graph_to_torch(g, device: str | torch.device = "cpu") -> PoseGraph:
+    return _convert(g, PoseGraph, device)
 
 
 def consistent_groups_to_numpy(groups) -> list:

@@ -1,7 +1,8 @@
 """Umeyama point-set alignment (counterpart of lc_crf_slam_tpu/geometry/align.py).
 
-Used by the capture-resistance audit (a batch of 3-point hypotheses) and
-for ATE. Rigid (scale fixed to 1), as every caller of the slice uses it.
+Used by the capture-resistance audit and the Horn RANSAC of loop
+verification (batches of 3-point hypotheses, then one weighted refit) and
+for ATE. Rigid by default; `with_scale=True` solves the similarity.
 Broadcasts over leading batch dimensions.
 """
 
@@ -9,17 +10,18 @@ from __future__ import annotations
 
 import torch
 
-from .se3 import nearest_rotation
+from .se3 import polar_rotation
 
 _EPS = 1e-9
 
 
-def umeyama_alignment(src, dst, w=None):
-    """Least-squares rigid transform dst ≈ R src + t.
+def umeyama_alignment(src, dst, w=None, with_scale: bool = False):
+    """Least-squares similarity dst ≈ s R src + t.
 
     src, dst: (..., N, 3); w: optional (..., N) weights. Returns (s, R, t)
-    with s = 1 (...,), R (..., 3, 3), t (..., 3), as the reference's
-    `umeyama_alignment(..., with_scale=False)`.
+    with s (...,) (1 unless `with_scale`), R (..., 3, 3), t (..., 3). The
+    3×3 SVD of the reference is the Jacobi eigensolver's polar factor
+    (`torch.linalg.svd` reads its status on the host).
     """
     if w is None:
         w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
@@ -29,6 +31,10 @@ def umeyama_alignment(src, dst, w=None):
     cs = src - mu_s[..., None, :]
     cd = dst - mu_d[..., None, :]
     # Sigma = sum_i w_i cd_i cs_i^T maps the src frame to the dst frame
-    R = nearest_rotation(torch.einsum("...n,...ni,...nj->...ij", wn, cd, cs))
-    s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
-    return s, R, mu_d - (R @ mu_s[..., None])[..., 0]
+    R, tr = polar_rotation(torch.einsum("...n,...ni,...nj->...ij", wn, cd, cs))
+    if with_scale:
+        var_s = torch.sum(wn * torch.sum(cs * cs, dim=-1), dim=-1)
+        s = tr / torch.clamp(var_s, min=_EPS)
+    else:
+        s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
+    return s, R, mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]

@@ -141,6 +141,29 @@ def exp_se3(xi: torch.Tensor) -> torch.Tensor:
     return make_se3(R, (V @ ups[..., None])[..., 0])
 
 
+def _left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of the SO(3) left Jacobian (the V of `exp_se3`), with the
+    reference's series below `_SMALL_TH`."""
+    th = _safe_norm(w)[..., None]
+    W = hat_so3(w)
+    small = th < _SMALL_TH
+    ths = torch.where(small, 1.0, th)
+    half = 0.5 * ths
+    th2 = th * th
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + th2 / 720.0 + th2 * th2 / 30240.0,
+        (1.0 - half * torch.cos(half) / torch.sin(half)) / (ths * ths),
+    )
+    return _eye3(w) - 0.5 * W + cot_term * (W @ W)
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) transform -> (..., 6) twist [upsilon, omega]."""
+    w = log_so3(T[..., :3, :3])
+    ups = (_left_jacobian_inv(w) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([ups, w], dim=-1)
+
+
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     Rt = R.transpose(-1, -2)
@@ -200,11 +223,13 @@ def _unit(x: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
     return torch.where(n > _TINY, x / torch.clamp(n, min=_TINY), fallback)
 
 
-def nearest_rotation(M: torch.Tensor) -> torch.Tensor:
-    """The rotation closest to (..., 3, 3) M (Kabsch / polar factor):
-    U diag(1, 1, det(U V^T)) V^T of M's SVD. V from the eigenvectors of
-    M^T M; U's first two columns are M V's, orthonormalised, and its
-    third their cross product, so rank-2 M (three points) works too."""
+def polar_rotation(M: torch.Tensor):
+    """(R, tr): the rotation closest to (..., 3, 3) M (Kabsch / polar
+    factor), U diag(1, 1, det(U V^T)) V^T of M's SVD, and the signed sum
+    of singular values tr = trace(diag(D) diag(1, 1, det(U V^T))) that
+    Umeyama's scale needs. V from the eigenvectors of M^T M; U's first two
+    columns are M V's, orthonormalised, and its third their cross product,
+    so rank-2 M (three points) works too."""
     V = _sym3_eigvecs(M.transpose(-1, -2) @ M)
     MV = M @ V
     u1 = _unit(MV[..., 0], V[..., 0])
@@ -213,7 +238,14 @@ def nearest_rotation(M: torch.Tensor) -> torch.Tensor:
     U = torch.stack([u1, u2, torch.linalg.cross(u1, u2)], dim=-1)   # det U = +1
     S = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
     S[..., 2] = torch.where(_det3(V) < 0, -1.0, 1.0)
-    return U @ (S[..., :, None] * V.transpose(-1, -2))
+    # U^T M V = diag(D) with the third entry signed by the true u3 . U[:, 2]
+    tr = torch.sum(torch.sum(U * MV, dim=-2) * S, dim=-1)
+    return U @ (S[..., :, None] * V.transpose(-1, -2)), tr
+
+
+def nearest_rotation(M: torch.Tensor) -> torch.Tensor:
+    """The rotation closest to (..., 3, 3) M (see `polar_rotation`)."""
+    return polar_rotation(M)[0]
 
 
 def orthonormalize_se3(T: torch.Tensor) -> torch.Tensor:

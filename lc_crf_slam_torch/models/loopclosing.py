@@ -1,22 +1,36 @@
-"""Loop detection and relocalisation (counterpart of `detect_loop` and
-`relocalize` of lc_crf_slam_tpu/models/loopclosing.py; loop verification
-and correction are not ported yet).
+"""Loop closing and relocalisation (counterpart of
+lc_crf_slam_tpu/models/loopclosing.py for the RGB-D sensor).
 
-KeyFrameDatabase::DetectLoopCandidates: cosine retrieval over the
-keyframes' descriptor embeddings, gated by the lowest similarity among
-the covisible neighbours and by temporal separation, scores accumulated
-over each candidate's covisibility group, a 0.75 x best admission bar,
-and the surviving top-k with their groups. The consecutive-detection
-group consistency is the host's counter (`SLAMSystem._try_close_loop`).
+KeyFrameDatabase::DetectLoopCandidates (`detect_loop`): cosine retrieval
+over the keyframes' descriptor embeddings, gated by the lowest similarity
+among the covisible neighbours and by temporal separation, scores
+accumulated over each candidate's covisibility group, a 0.75 x best
+admission bar, and the surviving top-k with their groups. The
+consecutive-detection group consistency is the host's counter
+(`SLAMSystem._try_close_loop`).
 
-Tracking::Relocalization: retrieval of the RELOC_CANDS keyframes whose
-descriptor embeddings best match the frame (0.75 × best admission bar),
-descriptor matching against each candidate's map points, 2D-3D PnP
-RANSAC, motion-only refinement, and a guided second matching pass by
-projection. The reference vmaps the candidates; the port matches them in
-a loop, solves all their PnP hypotheses in one batch, and refines them in
-a loop. A rare path: the batched `eigh` of the PnP reads its status on
-the host once.
+ComputeSim3 (`verify_loop`): descriptor matches between the two
+keyframes, depth-backed 3D-3D Horn RANSAC, `optimize_sim3`, then two
+SearchByProjection rounds over the loop branch's map points, each
+followed by a motion-only refinement; acceptance rests on that last
+stage. CorrectLoop (`correct_loop`): the corrective transform applied to
+the current covisible group, a pose graph over chain + strong
+covisibility + the loop edge, map points moved with their reference
+keyframe, SearchAndFuse on the current keyframe. `global_ba` is the joint
+matrix-free Schur LM over the whole map (`ops/schur.py::solve_ba_cg`),
+run by the system in budgeted slices; `search_and_fuse` over the group
+follows once the budget is spent. None of these reads the device on the
+host. `correct_loop_sim3` (monocular: `cfg.loop.fix_scale=False`) and
+`global_ba_alternating` are not ported.
+
+Tracking::Relocalization (`relocalize`): retrieval of the RELOC_CANDS
+keyframes whose descriptor embeddings best match the frame (0.75 × best
+admission bar), descriptor matching against each candidate's map points,
+2D-3D PnP RANSAC, motion-only refinement, and a second matching pass
+by projection. The reference vmaps the candidates; the port matches
+them in a loop, solves all their PnP hypotheses in one batch, and refines
+them in a loop. A rare path: the batched `eigh` of the PnP reads its
+status on the host once.
 """
 
 from __future__ import annotations
@@ -25,17 +39,26 @@ from typing import NamedTuple
 
 import torch
 
-from .._ops import stable_topk, take_row
+from .._ops import put_row, stable_topk, take_row
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
-from ..geometry.se3 import make_se3
+from ..geometry.se3 import make_se3, se3_inverse
+from ..geometry.sim3 import se3_from_sim3, sim3_compose, sim3_from_se3, sim3_inverse
 from ..ops.match import hamming_matrix, match_nn, projection_gate, resolve_duplicates
 from ..ops.pnp import PnPSampler, pnp_ransac
+from ..ops.ransac import HornSampler, horn_ransac
+from ..ops.schur import BAProblem, solve_ba_cg
 from .ba import pose_optimize
 from .frame import Frame
-from .mapstate import MapState, _descriptor_embedding, covisibility
+from .mapping import fuse_duplicates
+from .mapstate import MapState, _descriptor_embedding, covisibility, observed_mask
+from .posegraph import PoseGraph, optimize_pose_graph
+from .sim3opt import optimize_sim3
 
 RELOC_CANDS = 4   # retrieval candidates tried per attempt
+LOOP_GROUP_KFS = 12      # candidate + covisible neighbours whose points are re-matched
+LOOP_POINTS = 2048       # loop-branch map points projected for the re-match
+COVIS_EDGES = 256        # strongest covisibility edges of the pose graph
 
 
 class LoopCandidate(NamedTuple):
@@ -81,6 +104,241 @@ def detect_loop(cfg: SLAMConfig, m: MapState, kf_idx: torch.Tensor) -> LoopCandi
               | (ids[None, :] == cands[:, None])) & kvalid[:, None]
     return LoopCandidate(cand=cands[0], score=kscore[0], valid=torch.any(kvalid),
                          cands=cands, groups=groups)
+
+
+def _backproject(cam: Pinhole, uv: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    return torch.stack([(uv[:, 0] - cam.cx) / cam.fx * d,
+                        (uv[:, 1] - cam.cy) / cam.fy * d, d], dim=-1)
+
+
+def _project(cam: Pinhole, Tcw: torch.Tensor, pw: torch.Tensor):
+    """World points (N, 3) -> (pixels (N, 2), in front of the camera and
+    inside the image (N,))."""
+    pc = pw @ Tcw[:3, :3].T + Tcw[:3, 3]
+    z = torch.clamp(pc[:, 2], min=1e-6)
+    uv = torch.stack([cam.fx * pc[:, 0] / z + cam.cx,
+                      cam.fy * pc[:, 1] / z + cam.cy], dim=-1)
+    inside = (pc[:, 2] > 0.05) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width) \
+        & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height)
+    return uv, inside
+
+
+def _kf_world_points(cam: Pinhole, m: MapState, kf: torch.Tensor):
+    """World positions of a keyframe's features (K, 3) and which are
+    usable: back-projected where a depth was measured, else the feature's
+    map point."""
+    d = take_row(m.kf_depth, kf)
+    Twc = se3_inverse(take_row(m.kf_Tcw, kf))
+    pw_depth = _backproject(cam, take_row(m.kf_uv, kf), d) @ Twc[:3, :3].T + Twc[:3, 3]
+    obs = take_row(m.kf_obs, kf)
+    ids = torch.clamp(obs, min=0).long()
+    has_pt = (obs >= 0) & m.p_alive[ids]
+    ok_d = d > 0
+    pw = torch.where(ok_d[:, None], pw_depth, m.p_xyz[ids])
+    return pw, take_row(m.kf_valid, kf) & (ok_d | has_pt)
+
+
+class LoopVerification(NamedTuple):
+    T_corr: torch.Tensor     # (4, 4) world correction: p_true = T_corr @ p_drifted
+    s_corr: torch.Tensor     # () world-correction scale (1 when fix_scale)
+    n_inliers: torch.Tensor  # () int32 inliers of the last refinement
+    accepted: torch.Tensor   # () bool
+
+
+def verify_loop(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor,
+                cand: torch.Tensor, sampler: HornSampler) -> LoopVerification:
+    """ComputeSim3 for keyframe `kf_idx` against candidate `cand` (0-d
+    device indices): the correction that maps the drifted current branch
+    onto the loop branch, and whether to accept it. `sampler` draws the
+    Horn RANSAC's minimal sets."""
+    dev = m.p_xyz.device
+    min_w = cfg.mapping.covisibility_min_weight
+    cand_s = torch.clamp(cand, min=0)
+    kf_uv, kf_valid = take_row(m.kf_uv, kf_idx), take_row(m.kf_valid, kf_idx)
+    kf_desc, kf_level = take_row(m.kf_desc, kf_idx), take_row(m.kf_level, kf_idx)
+    kf_ur = take_row(m.kf_ur, kf_idx)
+    Tcw_kf, Tcw_cd = take_row(m.kf_Tcw, kf_idx), take_row(m.kf_Tcw, cand_s)
+
+    dist = hamming_matrix(kf_desc, take_row(m.kf_desc, cand_s))
+    gate = kf_valid[:, None] & take_row(m.kf_valid, cand_s)[None, :]
+    mm = match_nn(dist, mask=gate, max_dist=cfg.matcher.th_low, ratio=0.75, mutual=True)
+    mv = resolve_duplicates(mm.idx, mm.dist, mm.valid, dist.shape[1])
+    p_kf, ok_kf = _kf_world_points(cam, m, kf_idx)
+    p_cd, ok_cd = _kf_world_points(cam, m, cand_s)
+    pairs_ok = mv & ok_kf & ok_cd[mm.idx]
+    n_matches = torch.sum(pairs_ok.to(torch.int32))
+    res = horn_ransac(p_kf, p_cd[mm.idx], pairs_ok, sampler,
+                      n_hypotheses=cfg.loop.ransac_hypotheses, inlier_tol=0.10,
+                      fix_scale=cfg.loop.fix_scale)
+
+    # ---- OptimizeSim3 in the two camera frames ----------------------------
+    # S12 maps candidate-camera to keyframe-camera coordinates; from the
+    # world correction: S12 = Tcw_kf o S_corr^-1 o Twc_cd
+    def cam_points(kf, Tcw):
+        """Camera-frame feature points: the measured depth where there is
+        one, else the feature's map point seen from the camera."""
+        d = take_row(m.kf_depth, kf)
+        ids = torch.clamp(take_row(m.kf_obs, kf), min=0).long()
+        pc_m = m.p_xyz[ids] @ Tcw[:3, :3].T + Tcw[:3, 3]
+        return torch.where((d > 0)[:, None],
+                           _backproject(cam, take_row(m.kf_uv, kf), d), pc_m)
+
+    S12_0 = sim3_compose(
+        sim3_from_se3(Tcw_kf),
+        sim3_compose(sim3_inverse((res.s, res.R, res.t)),
+                     sim3_from_se3(se3_inverse(Tcw_cd))))
+    inv_sigma2 = (1.0 / cfg.orb.scale_factor**2) ** kf_level.to(torch.float32)
+    ref = optimize_sim3(cam, S12_0, cam_points(kf_idx, Tcw_kf),
+                        cam_points(cand_s, Tcw_cd)[mm.idx], kf_uv,
+                        take_row(m.kf_uv, cand_s)[mm.idx], pairs_ok & res.inliers,
+                        inv_sigma2, fix_scale=cfg.loop.fix_scale)
+    S_corr = sim3_inverse(sim3_compose(
+        sim3_from_se3(se3_inverse(Tcw_kf)),
+        sim3_compose((ref.s, ref.R, ref.t), sim3_from_se3(Tcw_cd))))
+
+    # ---- SearchByProjection re-match + final refinement -------------------
+    # the loop branch's map points (candidate + covisible neighbours),
+    # projected through the corrected pose and re-matched in a narrow
+    # window, twice; the second round at the first one's refined pose
+    covis_row = take_row(covisibility(m), cand_s)
+    gw0 = put_row(torch.where((covis_row >= min_w) & m.kf_alive, covis_row,
+                              float("-inf")), cand_s, float("inf"))
+    gw, gids = stable_topk(gw0, LOOP_GROUP_KFS)
+    gids = torch.where(gw > float("-inf"), gids, -1)
+    loop_pts = observed_mask(m, gids)
+    NP = min(LOOP_POINTS, m.capacity_points)
+    _, pid = stable_topk(loop_pts.to(torch.float32), NP)
+    p_ok = loop_pts[pid]
+    pw = m.p_xyz[pid]
+    # the corrected current camera in the loop world, S_cw = Tcw_kf o
+    # S_corr^-1, as an SE3 with the scale folded into the translation
+    S_cw = sim3_compose(sim3_from_se3(Tcw_kf), sim3_inverse(S_corr))
+    Tcw_corr0 = make_se3(S_cw[1], S_cw[2] / S_cw[0])
+    dist_g = hamming_matrix(kf_desc, m.p_desc[pid])               # (K, NP)
+
+    def projection_round(Tcw):
+        uv_pred, inside = _project(cam, Tcw, pw)
+        gate_g = kf_valid[:, None] & (p_ok & inside)[None, :] & projection_gate(
+            kf_uv, uv_pred, cfg.loop.guided_radius_px)
+        mm_g = match_nn(dist_g, mask=gate_g, max_dist=cfg.matcher.th_high, mutual=True)
+        mv_g = resolve_duplicates(mm_g.idx, mm_g.dist, mm_g.valid, NP)
+        return mv_g, pose_optimize(cam, Tcw, pw[mm_g.idx], kf_uv, kf_ur, kf_level,
+                                   mv_g, cfg.pose_opt, cfg.orb.scale_factor)
+
+    _, r2a = projection_round(Tcw_corr0)
+    mv_b, r2 = projection_round(r2a.Tcw)
+    # the final correction from the refined camera (scale unchanged):
+    # S_corr = S_cw_refined^-1 o Tcw_kf, where the camera's scale is
+    # S_cw[0] = 1 / S_corr[0]
+    S_cw_ref = (S_cw[0], r2.Tcw[:3, :3], S_cw[0] * r2.Tcw[:3, 3])
+    S_corr_f = sim3_compose(sim3_inverse(S_cw_ref), sim3_from_se3(Tcw_kf))
+    T_corr = se3_from_sim3(S_corr_f)
+
+    # the early stages only seed a correction (half the reference's bars);
+    # the decision rests on the projection stage at the full bars
+    n_total = torch.sum(mv_b.to(torch.int32))
+    seed_bow = cfg.loop.seed_bow_matches or max(cfg.loop.min_bow_matches // 2, 8)
+    seed_inl = cfg.loop.seed_sim3_inliers or max(cfg.loop.min_sim3_inliers // 2, 8)
+    accepted = ((cand >= 0) & (n_matches >= seed_bow) & (res.n_inliers >= seed_inl)
+                & (ref.n_inliers >= seed_inl)
+                & (r2.n_inliers >= cfg.loop.min_sim3_inliers)
+                & (n_total >= cfg.loop.min_total_matches)
+                & torch.all(torch.isfinite(T_corr)))
+    return LoopVerification(
+        T_corr=torch.where(accepted, T_corr, torch.eye(4, dtype=T_corr.dtype, device=dev)),
+        s_corr=torch.where(accepted, S_corr_f[0], 1.0),
+        n_inliers=r2.n_inliers, accepted=accepted)
+
+
+def search_and_fuse(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor,
+                    budget: int = 4) -> MapState:
+    """SearchAndFuse: fuse the loop branch's duplicate points into the
+    current covisible group, on the current keyframe and its `budget` - 1
+    strongest covisible neighbours, with `fuse_duplicates(loop_mode=True)`.
+    `correct_loop` fuses the current keyframe at once; the group-wide fuse
+    is for after global BA, whose refined alignment the 2.5 px gates need."""
+    covis_row = take_row(covisibility(m), kf_idx)
+    group = (covis_row >= cfg.mapping.covisibility_min_weight) & m.kf_alive
+    w = put_row(torch.where(group, covis_row, float("-inf")), kf_idx, float("inf"))
+    wk, fuse_kfs = stable_topk(w, budget)
+    # a group smaller than the budget re-fuses the current keyframe (a no-op)
+    fuse_kfs = torch.where(wk == float("-inf"), kf_idx.to(fuse_kfs.dtype), fuse_kfs)
+    for i in range(budget):
+        m = fuse_duplicates(cfg, cam, m, fuse_kfs[i], loop_mode=True)
+    return m
+
+
+def correct_loop(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor,
+                 cand: torch.Tensor, T_corr: torch.Tensor) -> MapState:
+    """CorrectLoop: correct the current covisible group, optimise the
+    essential graph, move the map points with their reference keyframe."""
+    F = m.capacity_kfs
+    dev = m.p_xyz.device
+    covis = covisibility(m)
+    group = put_row(take_row(covis, kf_idx) >= cfg.mapping.covisibility_min_weight,
+                    kf_idx, True) & m.kf_alive
+    cand_s = torch.clamp(cand, min=0)
+
+    Tcw_old = m.kf_Tcw
+    # the world correction moves the group's drifted world frame onto the
+    # loop branch: Tcw' = Tcw @ T_corr^-1
+    T_corr_inv = se3_inverse(T_corr)
+    Tcw_corr = torch.where(group[:, None, None], Tcw_old @ T_corr_inv, Tcw_old)
+
+    # chain and strong covisibility edges measured from the poses before
+    # the correction (odometry), the loop edge from the corrected relative
+    # pose; the loop candidate and keyframe 0 are the anchors
+    ids = torch.arange(F, device=dev)
+    seq_i, seq_j = ids[1:], ids[:-1]
+    seq_valid = m.kf_alive[seq_i] & m.kf_alive[seq_j] & (seq_i < m.n_kfs)
+    apart = torch.triu(torch.ones((F, F), dtype=torch.bool, device=dev), 2)
+    cv = torch.where(apart & m.kf_alive[:, None] & m.kf_alive[None, :], covis, 0.0)
+    topv, topidx = stable_topk(cv.reshape(-1), COVIS_EDGES)
+    cv_valid = topv >= cfg.loop.covis_edge_weight
+    e_i = torch.cat([seq_i, topidx // F, kf_idx.reshape(1).long()])
+    e_j = torch.cat([seq_j, topidx % F, cand_s.reshape(1).long()])
+    rel_meas = Tcw_old[e_i[:-1]] @ se3_inverse(Tcw_old[e_j[:-1]])
+    loop_rel = (take_row(Tcw_old, kf_idx) @ T_corr_inv) @ se3_inverse(
+        take_row(Tcw_old, cand_s))
+    e_w = torch.cat([torch.ones(e_i.shape[0] - 1, dtype=torch.float32, device=dev),
+                     torch.full((1,), 5.0, dtype=torch.float32, device=dev)])
+    g = PoseGraph(
+        Tcw=Tcw_corr, node_valid=m.kf_alive & (ids < m.n_kfs),
+        node_fixed=(ids == 0) | (ids == cand), e_i=e_i, e_j=e_j,
+        e_rel=torch.cat([rel_meas, loop_rel[None]]), e_w=e_w,
+        e_valid=torch.cat([seq_valid, cv_valid, torch.ones_like(cv_valid[:1])]))
+    Tcw_new = optimize_pose_graph(g, n_iters=cfg.loop.pose_graph_iters)
+
+    # each point moves with its reference keyframe: Twc_new Tcw_old
+    D = (se3_inverse(Tcw_new) @ Tcw_old)[torch.clamp(m.p_first_kf, 0, F - 1).long()]
+    p_new = torch.einsum("pij,pj->pi", D[:, :3, :3], m.p_xyz) + D[:, :3, 3]
+    m = m._replace(kf_Tcw=Tcw_new,
+                   p_xyz=torch.where(m.p_alive[:, None], p_new, m.p_xyz))
+    # SearchAndFuse on the current keyframe only, the one the tracker
+    # anchors on; the group waits for global BA (see `search_and_fuse`)
+    return search_and_fuse(cfg, cam, m, kf_idx, budget=1)
+
+
+def _map_ba_problem(cfg: SLAMConfig, m: MapState) -> BAProblem:
+    """The whole map's BAProblem from the observation tables, keyframe 0
+    fixed."""
+    F, K = m.kf_obs.shape
+    ids = torch.arange(F, device=m.kf_obs.device)
+    return BAProblem(
+        cam_Tcw=m.kf_Tcw, cam_fixed=ids == 0, p_xyz=m.p_xyz, p_valid=m.p_alive,
+        e_cam=ids[:, None].expand(F, K).reshape(-1),
+        e_pt=torch.clamp(m.kf_obs, min=0).reshape(-1).long(),
+        e_uv=m.kf_uv.reshape(-1, 2), e_ur=m.kf_ur.reshape(-1),
+        e_w=((1.0 / cfg.orb.scale_factor**2) ** m.kf_level.to(torch.float32)).reshape(-1),
+        e_valid=(m.kf_alive[:, None] & m.kf_valid & (m.kf_obs >= 0)).reshape(-1))
+
+
+def global_ba(cfg: SLAMConfig, cam: Pinhole, m: MapState, n_iters: int = 8) -> MapState:
+    """RunGlobalBundleAdjustment: `n_iters` LM iterations of the joint
+    matrix-free Schur solve over every keyframe and point of the map."""
+    cam_Tcw, p_xyz, _ = solve_ba_cg(cam, _map_ba_problem(cfg, m), n_iters=n_iters,
+                                    huber_delta=cfg.local_ba.huber_delta)
+    return m._replace(kf_Tcw=cam_Tcw, p_xyz=p_xyz)
 
 
 class RelocResult(NamedTuple):
@@ -131,13 +389,8 @@ def relocalize(cfg: SLAMConfig, cam: Pinhole, m: MapState, frame: Frame,
         obs_c = take_row(m.kf_obs, cand)
         has_c = (obs_c >= 0) & take_row(m.kf_valid, cand)
         pw_c = m.p_xyz[torch.clamp(obs_c, min=0).long()]
-        pc = pw_c @ r.Tcw[:3, :3].T + r.Tcw[:3, 3]
-        zc = torch.clamp(pc[:, 2], min=1e-6)
-        uv_pred = torch.stack([cam.fx * pc[:, 0] / zc + cam.cx,
-                               cam.fy * pc[:, 1] / zc + cam.cy], dim=-1)
-        proj_ok = has_c & (pc[:, 2] > 0.05) \
-            & (uv_pred[:, 0] >= 0) & (uv_pred[:, 0] < cam.width) \
-            & (uv_pred[:, 1] >= 0) & (uv_pred[:, 1] < cam.height)
+        uv_pred, inside = _project(cam, r.Tcw, pw_c)
+        proj_ok = has_c & inside
         dist_g = hamming_matrix(frame.desc, m.p_desc[torch.clamp(obs_c, min=0).long()])
         gate_g = frame.valid[:, None] & proj_ok[None, :] & projection_gate(
             frame.uv, uv_pred, cfg.loop.guided_radius_px)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .._ops import (popcount32, put_row, scatter_add, scatter_min, scatter_set,
+from .._ops import (popcount32, put_row, scatter_add, scatter_max, scatter_min, scatter_set,
                     stable_topk, take_row)
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
@@ -155,11 +155,14 @@ def fuse_duplicates(cfg: SLAMConfig, cam: Pinhole, m: MapState,
     into it and find each one's best feature. A feature holding another
     point merges the two (the less-observed dies, every reference
     re-points, and a keyframe that would then see the survivor twice
-    drops the extra entry); a free feature takes the point."""
-    if loop_mode:
-        raise NotImplementedError(
-            "fuse_duplicates(loop_mode=True) belongs to loop closing, which is "
-            "not ported to lc_crf_slam_torch yet")
+    drops the extra entry); a free feature takes the point.
+
+    `loop_mode` (SearchAndFuse after a loop correction): the survivor of a
+    merge is the twin with the cleaner dynamic evidence (`p_dyn` apart by
+    more than 0.1), the observation count deciding otherwise; the merge
+    certifies both as one static structure whose statistics were gathered
+    against drifted geometry, so the survivor's found/visible ratio is
+    reset and it takes the lower of the twins' evidence EMAs."""
     P, F, K = m.capacity_points, m.capacity_kfs, m.kf_obs.shape[1]
     dev = m.p_xyz.device
     Tcw = take_row(m.kf_Tcw, kf_idx)
@@ -194,6 +197,9 @@ def fuse_duplicates(cfg: SLAMConfig, cam: Pinhole, m: MapState,
     a = torch.where(mergeable, existing.long(), 0)
     b = torch.where(mergeable, cand_ids, 0)
     keep_b = m.p_n_obs[b] >= m.p_n_obs[a]
+    if loop_mode:
+        pd_a, pd_b = m.p_dyn[a], m.p_dyn[b]
+        keep_b = torch.where(torch.abs(pd_b - pd_a) > 0.1, pd_b < pd_a, keep_b)
     dup = torch.where(mergeable, torch.where(keep_b, a, b), -1)
     tgt = torch.where(mergeable, torch.where(keep_b, b, a), -1)
     L = dup.shape[0]
@@ -237,6 +243,22 @@ def fuse_duplicates(cfg: SLAMConfig, cam: Pinhole, m: MapState,
         kf_obs=new_kf_obs,
         p_alive=scatter_set(m.p_alive, torch.where(dup >= 0, dup, P), False),
         p_n_obs=m.p_n_obs + gained[:P] - erased_w[:P])
+    if loop_mode:
+        dup_s, tgt_m = _ids(dup), torch.where(dup >= 0, tgt, P)
+
+        def _emin(arr):
+            # (the reference chains a second .min with the survivor's own
+            # value, which the first already bounds)
+            return scatter_min(arr, tgt_m, arr[dup_s])
+
+        m = m._replace(
+            p_visible=scatter_set(m.p_visible, tgt_m, 1),
+            p_found=scatter_set(m.p_found, tgt_m, 1),
+            p_dyn=_emin(m.p_dyn),
+            p_err_ema=_emin(m.p_err_ema),
+            p_depth_err_ema=_emin(m.p_depth_err_ema),
+            p_flow_err=_emin(m.p_flow_err),
+            p_last_seen=scatter_max(m.p_last_seen, tgt_m, m.p_last_seen[dup_s]))
 
     # case 2: the feature is free (-1; condemned -2 stays blocked) -> attach
     # the point, unless this keyframe already observes it

@@ -258,3 +258,24 @@ def near_dynamic_envelope(m: MapState, xyz: torch.Tensor, dyn_threshold: float,
     near = torch.any((d2 <= sigma * sigma) & dyn_ok[None, :], dim=1)
     d2t = torch.sum((xyz[:, None, :] - m.tomb_xyz[None, :, :]) ** 2, dim=-1)
     return near | torch.any((d2t <= sigma * sigma) & m.tomb_valid[None, :], dim=1)
+
+
+def observed_mask(m: MapState, kf_ids: torch.Tensor) -> torch.Tensor:
+    """(P,) bool: the alive points observed by any of the given keyframes
+    ((n,) indices padded with -1)."""
+    obs = torch.where(kf_ids[:, None] >= 0,
+                      m.kf_obs[torch.clamp(kf_ids, min=0).long()], -1)
+    P = m.capacity_points
+    mask = scatter_set(torch.zeros(P, dtype=torch.bool, device=obs.device),
+                       torch.where(obs >= 0, obs, P).reshape(-1), True)
+    return mask & m.p_alive
+
+
+def scrub_dead_obs(m: MapState) -> MapState:
+    """Condemn (-2) every keyframe observation of a dead slot. Not part
+    of the pipeline, where such references persist on purpose (covisibility
+    weight, feature blocking) until `add_points` recycles the slot: a test
+    and maintenance utility. The sentinel is -2, not the free-feature -1:
+    a culled point's features stay blocked from re-triangulation."""
+    dead_ref = (m.kf_obs >= 0) & ~m.p_alive[torch.clamp(m.kf_obs, min=0).long()]
+    return m._replace(kf_obs=torch.where(dead_ref, -2, m.kf_obs))

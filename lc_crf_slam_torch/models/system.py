@@ -18,17 +18,20 @@ conditional and pads the last chunk; eager PyTorch reads the keyframe
 decision on the host (one device->host read per frame, nothing else
 inside a chunk) and runs a ragged last chunk as it is.
 
-Loop detection (`detect_loop`) and the consecutive-detection consistency
-streak are ported; a candidate that becomes ready for verification raises
-`NotImplementedError` (`verify_loop` and the correction are not ported).
-The stereo and monocular entry points, the "direct" descriptor and lens
-distortion are not ported either; asking for one raises
-`NotImplementedError`.
+Loop closing (`_try_close_loop`) runs on every new keyframe: detection,
+the consecutive-detection consistency streak, verification of up to three
+ready candidates, and on acceptance the pose-graph correction. Global BA
+then runs off the hot path in budgeted slices (`_pump_gba`: one slice per
+frame or per chunk), and the group-wide SearchAndFuse once the budget is
+spent; exporting a trajectory or `shutdown` finishes a pending budget.
+The stereo and monocular entry points (and with them the Sim(3) loop,
+`cfg.loop.fix_scale=False`), the "direct" descriptor and lens distortion
+are not ported; asking for one raises `NotImplementedError`.
 
 `track_rgbd` reads the device once per frame (the keyframe decision and
 the tracking status); a keyframe frame reads it once more for the
-capacity warning and once for the loop detection, and a relocalisation
-attempt twice more.
+capacity warning and once for the loop detection, a relocalisation
+attempt twice more, and every verified loop candidate once (its verdict).
 """
 
 from __future__ import annotations
@@ -48,11 +51,13 @@ from ..geometry.camera import Pinhole
 from ..geometry.se3 import se3_inverse
 from ..ops.lk_flow import lk_track, lk_track_batch
 from ..ops.pnp import uniform_sampler
+from ..ops.ransac import multinomial_sampler
 from ..utils.io_tum import write_trajectory_tum
 from .ba import draw_consensus
 from .crf import crf_step
 from .frame import Frame, build_frame, build_frames
-from .loopclosing import detect_loop, relocalize
+from .loopclosing import (correct_loop, detect_loop, global_ba, relocalize,
+                          search_and_fuse, verify_loop)
 from .mapping import mapping_step
 from .mapstate import MapState, empty_map
 from .tracking import (
@@ -66,6 +71,7 @@ from .tracking import (
 
 _AUDIT_SEED = 17   # the reference keys its audit draws with PRNGKey(17)
 _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
+_LOOP_SEED = 11    # the port's own stream for the loop verification's draws
 
 
 def _check_ported(cam: Pinhole, cfg: SLAMConfig) -> None:
@@ -74,6 +80,9 @@ def _check_ported(cam: Pinhole, cfg: SLAMConfig) -> None:
         missing.append(f"descriptor_variant={cfg.orb.descriptor_variant!r}")
     if cam.has_distortion:
         missing.append("keypoint undistortion (camera has distortion terms)")
+    if cfg.loop.enabled and not cfg.loop.fix_scale:
+        missing.append("loop.fix_scale=False (the monocular Sim(3) loop: "
+                       "correct_loop_sim3 and the Sim3 pose graph)")
     if missing:
         raise NotImplementedError(
             "not ported to lc_crf_slam_torch yet: " + "; ".join(missing))
@@ -166,11 +175,12 @@ class SLAMSystem:
 
     `device` defaults to CUDA and raises if no card is present; the CPU
     runs only when asked for (`device="cpu"`), as the tests do.
-    `n_mapping_steps`, `n_crf_steps` and `n_detect_loops` count the stage
-    calls. Set `seq_phases` to a dict and `track_sequence` adds the host
-    seconds of its phases to it (frontend, lk, steps, crf, chunk_fetch,
-    host_misc, reloc_host, loop_host); the device runs behind the host,
-    and the fetch absorbs what it still has to do.
+    `n_mapping_steps`, `n_crf_steps`, `n_detect_loops` and `n_verify_loops`
+    count the stage calls; `loop_log` lists the closed loops. Set
+    `seq_phases` to a dict and `track_sequence` adds the host seconds of
+    its phases to it (frontend, lk, steps, crf, chunk_fetch, host_misc,
+    reloc_host, loop_host); the device runs behind the host, and the fetch
+    absorbs what it still has to do.
     """
 
     def __init__(self, cam: Pinhole, cfg: Optional[SLAMConfig] = None,
@@ -215,8 +225,14 @@ class SLAMSystem:
         self.n_mapping_steps = 0
         self.n_crf_steps = 0
         self.n_detect_loops = 0
+        self.n_verify_loops = 0
         self._consistent_groups: List[tuple] = []   # [(covis-group mask, streak)]
         self._last_loop_kf = -10**9
+        self.loop_log: List[dict] = []       # kf, cand, inliers, s_corr per closure
+        # global BA budget left after a loop closure: {"left": LM iterations,
+        # "kf": the closing keyframe}
+        self._gba_pending: Optional[dict] = None
+        self._gba_slices_run = 0
 
     # ------------------------------------------------------------------ api
     def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
@@ -244,6 +260,13 @@ class SLAMSystem:
         """PnP sample indices of this frame's relocalisation attempt."""
         self._gen.manual_seed(_RELOC_SEED * 1_000_003 + self._n_frames)
         return uniform_sampler(self._gen)
+
+    def _loop_sampler(self):
+        """Horn RANSAC minimal sets of this loop verification (the
+        reference splits them off its relocalisation key; the port numbers
+        a stream of its own by verification)."""
+        self._gen.manual_seed(_LOOP_SEED * 1_000_003 + self.n_verify_loops)
+        return multinomial_sampler(self._gen)
 
     # stat names packed into the deferred per-frame device vector
     _DEV_STAT_KEYS = ("n_mm", "n_inliers", "n_local", "rescued", "ref_fallback",
@@ -293,6 +316,8 @@ class SLAMSystem:
                 self._warn_if_at_capacity()
                 if self.enable_loop:
                     self._try_close_loop()
+            # a pending global BA advances one budgeted slice per frame
+            self._pump_gba()
             zero = torch.zeros((), dtype=torch.int64, device=self.device)
             crf_dyn = crf_tracks = zero
             if self.enable_crf:
@@ -495,6 +520,8 @@ class SLAMSystem:
                 self._try_close_loop(pre=(
                     int(refkf[k]), bool(lc_valid[i]), lc_cands.reshape(n, topk)[i],
                     lc_groups.reshape(n, topk, -1)[i]))
+        # a pending global BA advances one budgeted slice per chunk
+        self._pump_gba()
         clock.lap("loop_host")
         return Tcw_np
 
@@ -505,8 +532,10 @@ class SLAMSystem:
         packed fetch), then the consecutive-detection GROUP consistency: a
         candidate qualifies once its covisibility group has intersected a
         group of the previous detections `consistency_needed` times in a
-        row. A qualified candidate would be verified and the loop
-        corrected; that part is not ported, so it raises."""
+        row. Up to three qualified candidates are verified in order (one
+        device->host read each: the verdict, with the log's scalars); the
+        first accepted one corrects the loop, re-anchors the tracker on its
+        moved reference keyframe and opens the global-BA budget."""
         if pre is not None:
             kf, valid, cands, groups = pre
         else:
@@ -536,11 +565,56 @@ class SLAMSystem:
             if streak >= self.cfg.loop.consistency_needed:
                 ready.append(int(c))
         self._consistent_groups = new_groups
-        if ready:
-            raise NotImplementedError(
-                f"loop candidates {ready[:3]} of keyframe {kf} are ready for "
-                "verification: verify_loop, correct_loop and the budgeted "
-                "global BA are not ported to lc_crf_slam_torch yet")
+        dev = self.device
+        kf_dev = torch.full((), kf, dtype=torch.int32, device=dev)
+        for cand in ready[:3]:
+            cand_dev = torch.full((), cand, dtype=torch.int32, device=dev)
+            ver = verify_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
+                              self._loop_sampler())
+            self.n_verify_loops += 1
+            accepted, inliers, s_corr = torch.stack([
+                ver.accepted.to(torch.float32), ver.n_inliers.to(torch.float32),
+                ver.s_corr]).tolist()
+            if not accepted:
+                continue
+            self.map = correct_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
+                                    ver.T_corr)
+            # the current pose moved with its keyframe
+            self.ts = self.ts._replace(
+                Tcw=take_row(self.map.kf_Tcw, self.ts.ref_kf),
+                vel=torch.eye(4, device=dev))
+            # global BA runs as budgeted slices pumped by the frames (or
+            # chunks) that follow; a new loop restarts the budget
+            self._gba_pending = {"left": self.cfg.loop.gba_total_iters, "kf": kf}
+            if self.cfg.loop.gba_slice_iters <= 0:
+                self._pump_gba(drain=True)
+            self._last_loop_kf = kf
+            self._consistent_groups = []
+            self.loop_log.append({"kf": kf, "cand": cand, "inliers": int(inliers),
+                                  "s_corr": s_corr})
+            return
+
+    def _pump_gba(self, drain: bool = False) -> None:
+        """Run pending global-BA work: one slice of `gba_slice_iters` LM
+        iterations per call, so a frame never waits for more, until the
+        loop's `gba_total_iters` are spent; then the group-wide
+        SearchAndFuse. `drain=True` (trajectory export, shutdown, or
+        `gba_slice_iters <= 0`) finishes the whole budget now."""
+        while self._gba_pending is not None:
+            slice_iters = self.cfg.loop.gba_slice_iters
+            if slice_iters <= 0 or drain:
+                slice_iters = max(self.cfg.loop.gba_total_iters, 1)
+            self.map = global_ba(self.cfg, self.cam, self.map, slice_iters)
+            self._gba_slices_run += 1
+            self._gba_pending["left"] -= slice_iters
+            if self._gba_pending["left"] <= 0:
+                kf = torch.full((), self._gba_pending["kf"], dtype=torch.int32,
+                                device=self.device)
+                self.map = search_and_fuse(self.cfg, self.cam, self.map, kf,
+                                           self.cfg.mapping.fuse_neighbors)
+                self._gba_pending = None
+            if not drain:
+                break
 
     def flush_stats(self) -> None:
         """Resolve the deferred per-frame device stats and keyframe ids."""
@@ -577,7 +651,10 @@ class SLAMSystem:
     # ----------------------------------------------------------- trajectory
     def get_trajectory(self):
         """Per-frame (timestamps, Twc): each stored relative pose composed
-        with its reference keyframe's current pose (SaveTrajectoryTUM)."""
+        with its reference keyframe's current pose (SaveTrajectoryTUM), so
+        frames tracked before a loop closure inherit the corrected keyframe
+        poses. Finishes a pending global BA first."""
+        self._pump_gba(drain=True)
         if not self.trajectory:
             return np.zeros((0,)), np.zeros((0, 4, 4))
         ts = np.array([t for t, _, _ in self.trajectory])
@@ -609,8 +686,14 @@ class SLAMSystem:
 
     def save_keyframe_trajectory_tum(self, path: str) -> None:
         """SaveKeyFrameTrajectoryTUM: the live keyframes' poses."""
+        self._pump_gba(drain=True)
         n = int(self.map.n_kfs)
         alive = self.map.kf_alive[:n].cpu().numpy()
         Twc = se3_inverse(self.map.kf_Tcw[:n]).cpu().numpy()[alive]
         times = self.map.kf_time[:n].cpu().numpy()[alive]
         write_trajectory_tum(path, times, Twc)
+
+    def shutdown(self) -> None:
+        """Finish a pending global BA and resolve the deferred stats."""
+        self._pump_gba(drain=True)
+        self.flush_stats()

@@ -1,5 +1,6 @@
 """Sparse Schur-complement Levenberg-Marquardt bundle adjustment
-(counterpart of lc_crf_slam_tpu/ops/schur.py's `solve_ba`).
+(counterpart of lc_crf_slam_tpu/ops/schur.py's `solve_ba`, which local BA
+runs, and `solve_ba_cg`, the matrix-free variant for the whole map).
 
 Fixed-capacity edge lists, per-edge residuals and Jacobians batched over
 all observations, the blocks of each edge summed into its camera, point
@@ -209,6 +210,120 @@ def solve_ba(cam: Pinhole, prob: BAProblem, n_iters: int = 10,
     chi2, cost = total_cost(cam_Tcw, p_xyz)
     return cam_Tcw, p_xyz, BAStats(
         cost=cost, n_edges=torch.sum(prob.e_valid.to(torch.int32)), edge_chi2=chi2)
+
+
+def _cg_lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta,
+                cg_iters: int):
+    """One assembly + matrix-free Schur solve + back-substitution of
+    `solve_ba_cg`; returns the candidate (cam_Tcw', p_xyz')."""
+    C, P = cam_Tcw.shape[0], p_xyz.shape[0]
+    e_cam, e_pt = prob.e_cam.long(), prob.e_pt.long()
+    r, J_cam, J_pt, z_ok = _edge_residuals(cam, cam_Tcw, p_xyz, prob)
+    active = prob.e_valid & z_ok & prob.p_valid[e_pt]
+    _, w, _ = _robust_weights(r, prob.e_w, active, huber_delta)
+    J_cam = J_cam * (~prob.cam_fixed[e_cam]).to(J_cam.dtype)[:, None, None]
+    wJc = w[:, None, None] * J_cam
+    wJp = w[:, None, None] * J_pt
+    # block-diagonal Hessians and gradients
+    Hcc = _sum_into(C, e_cam, torch.einsum("eij,eik->ejk", wJc, J_cam))
+    g_c = _sum_into(C, e_cam, torch.einsum("eij,ei->ej", wJc, r))
+    Hpp = _sum_into(P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt))
+    g_p = _sum_into(P, e_pt, torch.einsum("eij,ei->ej", wJp, r))
+    # per-edge coupling block B_e = J_cam^T W J_pt, (E, 6, 3)
+    B = torch.einsum("eij,eik->ejk", wJc, J_pt)
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    eye6 = torch.eye(6, dtype=Hpp.dtype, device=Hpp.device)
+    Hpp_inv = inv3x3(Hpp + lam * torch.diag_embed(torch.diagonal(Hpp, dim1=-2, dim2=-1))
+                     + 1e-6 * eye3)
+    Hcc_d = Hcc + lam * torch.diag_embed(torch.diagonal(Hcc, dim1=-2, dim2=-1))
+    # fixed and observation-free cameras stay where they are
+    pin = (prob.cam_fixed | (torch.einsum("cii->c", Hcc) < 1e-8))[:, None]
+
+    def to_points(x):
+        """sum_e B_e^T x(c(e)) into each edge's point; x (C, 6) -> (P, 3)."""
+        return _sum_into(P, e_pt, torch.einsum("eji,ej->ei", B, x[e_cam]))
+
+    def to_cameras(v):
+        """sum_e B_e v(p(e)) into each edge's camera; v (P, 3) -> (C, 6)."""
+        return _sum_into(C, e_cam, torch.einsum("eab,eb->ea", B, v[e_pt]))
+
+    def matvec(x):
+        """(Hcc_d - W Hpp^-1 W^T) x, streamed over the edges."""
+        whw = to_cameras(torch.einsum("pab,pb->pa", Hpp_inv, to_points(x)))
+        y = torch.einsum("cab,cb->ca", Hcc_d, x) - whw
+        return torch.where(pin, x, y + 1e-6 * x)
+
+    # exact block diagonal of S for the preconditioner, edge by edge:
+    # D_c = Hcc_d(c) - sum_e B_e Hpp_inv(p(e)) B_e^T, contracted in two
+    # steps of (E, 6, 3) and (E, 6, 6)
+    BH = B @ Hpp_inv[e_pt]
+    S_diag = Hcc_d - _sum_into(C, e_cam, BH @ B.transpose(-1, -2))
+    Pinv = torch.linalg.inv_ex(
+        torch.where(pin[:, :, None], eye6, S_diag + 1e-6 * eye6))[0]
+
+    rhs = g_c - to_cameras(torch.einsum("pab,pb->pa", Hpp_inv, g_p))
+    r_cg = -torch.where(pin, 0.0, rhs)
+    x = torch.zeros_like(r_cg)
+    z = torch.einsum("cij,cj->ci", Pinv, r_cg)
+    p = z
+    for _ in range(cg_iters):
+        Ap = matvec(p)
+        rz = torch.sum(r_cg * z)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+        x = x + alpha * p
+        r_cg = r_cg - alpha * Ap
+        z = torch.einsum("cij,cj->ci", Pinv, r_cg)
+        p = z + torch.sum(r_cg * z) / torch.clamp(rz, min=1e-20) * p
+    delta_c = x * (~prob.cam_fixed).to(x.dtype)[:, None]
+    # back-substitute points: dp = -Hpp^-1 (g_p + sum_e B_e^T dc(e))
+    delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + to_points(delta_c))
+    has_obs = torch.einsum("pii->p", Hpp) > 0
+    delta_p = torch.where((prob.p_valid & has_obs)[:, None], delta_p, 0.0)
+    return exp_se3(delta_c) @ cam_Tcw, p_xyz + delta_p
+
+
+def solve_ba_cg(cam: Pinhole, prob: BAProblem, n_iters: int = 10, cg_iters: int = 48,
+                huber_delta: float = 2.7955, init_lambda: float = 1e-4,
+                huber_delta_mono: float | None = 2.4477,
+                ) -> Tuple[torch.Tensor, torch.Tensor, BAStats]:
+    """Joint Schur-complement LM at full-map scale, matrix-free (global
+    BA): where `solve_ba`'s dense (P, C, 6, 3) coupling would not fit, the
+    reduced camera system S = Hcc - W Hpp^-1 W^T is never formed. Each of
+    the `cg_iters` (fixed, no early exit) preconditioned-CG matvecs
+    streams over the edge list: gather the camera's vector, through the
+    edge's 6×3 coupling block into its point, the damped 3×3 point
+    inverse, and back. The block-Jacobi preconditioner holds the exact
+    diagonal 6×6 blocks of S. LM accept/reject and the per-edge Huber delta
+    as `solve_ba`; `edge_chi2` comes back as zeros, as in the reference.
+    The sums over edges are float `index_add_`: sequential on the CPU,
+    atomics on a card, where two runs differ in the last bits."""
+    if huber_delta_mono is not None:
+        huber_delta = torch.where(prob.e_ur >= 0, huber_delta, huber_delta_mono)
+
+    def total_cost(cam_Tcw, p_xyz):
+        r, _, _, _, z_ok = _project_edges(cam, cam_Tcw, p_xyz, prob)
+        active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt.long()]
+        return _robust_weights(r, prob.e_w, active, huber_delta)[2]
+
+    cam_Tcw, p_xyz = prob.cam_Tcw, prob.p_xyz
+    lam = torch.full((), init_lambda, dtype=torch.float32, device=p_xyz.device)
+    f_old = total_cost(cam_Tcw, p_xyz)
+    for _ in range(n_iters):
+        cam_new, p_new = _cg_lm_step(cam, cam_Tcw, p_xyz, prob, lam, huber_delta,
+                                     cg_iters)
+        f_new = total_cost(cam_new, p_new)
+        # a non-finite candidate is never adopted: the robust cost sums
+        # active edges only, so an inf in a weakly constrained coordinate
+        # could hide from f_new while poisoning the state
+        accept = (f_new < f_old) & torch.all(torch.isfinite(cam_new)) \
+            & torch.all(torch.isfinite(p_new))
+        cam_Tcw = torch.where(accept, cam_new, cam_Tcw)
+        p_xyz = torch.where(accept, p_new, p_xyz)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e6)
+        f_old = torch.where(accept, f_new, f_old)
+    return cam_Tcw, p_xyz, BAStats(
+        cost=f_old, n_edges=torch.sum(prob.e_valid.to(torch.int32)),
+        edge_chi2=torch.zeros_like(prob.e_w))
 
 
 def solve_ba_with_outlier_rounds(cam: Pinhole, prob: BAProblem, iters_1: int = 5,

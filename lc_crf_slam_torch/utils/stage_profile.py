@@ -3,6 +3,7 @@ chunked.
 
     python -m lc_crf_slam_torch.utils.stage_profile [--frames 31]
     python -m lc_crf_slam_torch.utils.stage_profile --sequence [--chunk 15]
+    python -m lc_crf_slam_torch.utils.stage_profile --loop
 
 Runs `SLAMSystem.track_rgbd` with mapping and the CRF on (loop closing
 off) over bench.py's billboard world at TUM3 640×480 and default
@@ -21,7 +22,14 @@ detection on, same world): the stages of a chunk (the batched front-end
 spawn gate / insertion / `mapping_step` / `detect_loop`, the flow EMA,
 `crf_step`) under the same synchronisation, their aten ops, and the
 unsynchronised `seq_phases` split of a third run (step loop, fetch and
-host logic included). Needs a CUDA device.
+host logic included).
+
+`--loop` profiles the same chunked path over the loop world instead (a
+1.2-turn pan over a textured wall, 130 frames, as `chip_smoke.py`'s loop
+phase), whose revisit closes a loop: it adds the rows of loop closing,
+`verify_loop`, `correct_loop` (its `optimize_pose_graph` apart), one
+`global_ba` slice and the group-wide `search_and_fuse`. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Dict, List
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..models import mapping, system
+from ..models import loopclosing, mapping, system
 
 # (module, function, row name), outermost first
 STAGES = (
@@ -45,6 +53,11 @@ STAGES = (
     (system, "lk_track_batch", "LK batch (chunk)"),
     (system, "flow_ema", "flow_ema"),
     (system, "detect_loop", "detect_loop"),
+    (system, "verify_loop", "verify_loop"),
+    (system, "correct_loop", "correct_loop"),
+    (loopclosing, "optimize_pose_graph", "correct_loop: pose graph"),
+    (system, "global_ba", "global_ba (slice)"),
+    (system, "search_and_fuse", "search_and_fuse (group)"),
     (system, "build_frame", "build_frame"),
     (system, "track_step", "track_step"),
     (system, "flow_evidence", "flow_evidence"),
@@ -241,8 +254,12 @@ def main() -> int:
     ap.add_argument("--json", default=None, help="also write the rows here")
     ap.add_argument("--sequence", action="store_true",
                     help="profile track_sequence instead of track_rgbd")
+    ap.add_argument("--loop", action="store_true",
+                    help="profile track_sequence over the loop world (130 frames)")
     ap.add_argument("--chunk", type=int, default=15)
     args = ap.parse_args()
+    if args.loop:
+        args.sequence, args.frames = True, 130
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -250,8 +267,14 @@ def main() -> int:
     from ..geometry.camera import TUM3
     from ..utils.synthetic import SyntheticWorld
 
-    world = SyntheticWorld(cam=TUM3, n_frames=60, n_static=1400, n_dynamic=0, seed=7,
-                           trajectory="line", billboard=True, bb_speed=0.04)
+    if args.loop:
+        world = SyntheticWorld(cam=TUM3, n_frames=args.frames, n_static=900, n_dynamic=0,
+                               seed=5, trajectory="pan", wall=True, pan_leadin=0.1,
+                               pan_turns=1.2, pan_translation=0.25,
+                               render_depth_noise=0.015)
+    else:
+        world = SyntheticWorld(cam=TUM3, n_frames=60, n_static=1400, n_dynamic=0, seed=7,
+                               trajectory="line", billboard=True, bb_speed=0.04)
     frames = []
     for k in range(args.frames):
         f = world.frame(k, render=True)

@@ -54,6 +54,15 @@ def test_log_so3_roundtrip():
     _close(ref_se3.log_so3(jnp.asarray(R)), se3.log_so3(torch.tensor(R)))
 
 
+def test_log_se3_both_sides_of_taylor_cutoff():
+    """Against the reference, and as the inverse of exp_se3 (below pi)."""
+    xi = _twists(7)
+    T = np.asarray(ref_se3.exp_se3(jnp.asarray(xi)))
+    out = se3.log_se3(torch.tensor(T))
+    _close(ref_se3.log_se3(jnp.asarray(T)), out)
+    np.testing.assert_allclose(out.numpy(), xi, atol=2e-5)
+
+
 def test_inverse_and_orthonormalize():
     T = np.asarray(ref_se3.exp_se3(jnp.asarray(_twists(2))))
     rng = np.random.default_rng(3)
@@ -81,6 +90,34 @@ def test_umeyama_batched(n_pts):
     out = align.umeyama_alignment(torch.tensor(src), torch.tensor(dst))
     for a, b in zip(ref, out):
         _close(a, b, atol=1e-4 if n_pts == 3 else ATOL)
+
+
+@pytest.mark.parametrize("n_pts,with_scale", [(3, False), (3, True), (60, False),
+                                              (60, True)])
+def test_umeyama_weighted_with_scale(n_pts, with_scale):
+    """As horn_ransac calls it: a batch of (H, 3, 3) minimal sets without
+    weights (a rank-2 covariance: the reflection fix decides the third
+    axis), and one weighted refit; rigid and with the scale solved. A
+    similarity of scale 1.2 generates the data, so the rigid fit is a
+    compromise and the scaled one recovers 1.2."""
+    rng = np.random.default_rng(9)
+    T = np.asarray(ref_se3.exp_se3(jnp.asarray(_twists(10))))
+    src = rng.normal(0, 1, (len(T), n_pts, 3)).astype(np.float32)
+    dst = (1.2 * np.einsum("bij,bnj->bni", T[:, :3, :3], src) + T[:, None, :3, 3]
+           + rng.normal(0, 1e-3, src.shape)).astype(np.float32)
+    w = None if n_pts == 3 else rng.integers(0, 2, src.shape[:2]).astype(np.float32)
+    ref = ref_align.umeyama_alignment(jnp.asarray(src), jnp.asarray(dst),
+                                      w=None if w is None else jnp.asarray(w),
+                                      with_scale=with_scale)
+    out = align.umeyama_alignment(torch.tensor(src), torch.tensor(dst),
+                                  w=None if w is None else torch.tensor(w),
+                                  with_scale=with_scale)
+    for a, b in zip(ref, out):
+        _close(a, b, atol=1e-4 if n_pts == 3 else ATOL)
+    if with_scale:
+        np.testing.assert_allclose(out[0].numpy(), 1.2, atol=2e-3)
+    else:
+        assert torch.equal(out[0], torch.ones(len(T)))
 
 
 def test_pinhole_and_config_match_reference():

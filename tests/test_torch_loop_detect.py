@@ -1,10 +1,10 @@
 """Loop detection parity: `detect_loop` against the reference on a map
 the reference tracker built (converted array by array), and the host's
 consecutive-detection group-consistency streak (`_try_close_loop`)
-against the reference's on a hand-made sequence of detections."""
+against the reference's on a hand-made sequence of detections, with the
+verification of both packages replaced by a recorder that rejects."""
 
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -21,11 +21,12 @@ from lc_crf_slam_tpu.models.system import SLAMSystem as RefSystem
 from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
 from lc_crf_slam_torch import convert
 from lc_crf_slam_torch.geometry.camera import TUM3
-from lc_crf_slam_torch.models.loopclosing import detect_loop
+from lc_crf_slam_torch import config
+from lc_crf_slam_torch.models import system as port_system
+from lc_crf_slam_torch.models.loopclosing import LoopVerification, detect_loop
 from lc_crf_slam_torch.models.system import SLAMSystem
 
-from test_loopclosing import _drifted_loop_map
-from torch_parity import CAM, CAM_REF
+from torch_parity import CAM, CAM_REF, drifted_loop_map
 
 SCORE_TOL = 1e-5   # a 256-term f32 dot summed in another order
 
@@ -102,7 +103,7 @@ def test_detect_loop_on_drifted_revisit():
     """The reference test's hand-built map: keyframe 0 and the last one see
     the same cloud, 12 keyframes between look elsewhere."""
     cfg = SLAMConfig(loop=LoopConfig(min_kfs_since_last=5))
-    m_ref, kf_loop, *_ = _drifted_loop_map(cfg)
+    m_ref, kf_loop, *_ = drifted_loop_map(cfg)
     m = convert.map_to_torch(m_ref)
     for k in (int(kf_loop), 6):
         ref = ref_detect_loop(cfg, m_ref, jnp.asarray(k, jnp.int32))
@@ -133,14 +134,26 @@ class _Rejected:
     accepted = False
 
 
-def both_systems():
-    ref = RefSystem(CAM_REF, STREAK_CFG)
-    port = SLAMSystem(CAM, STREAK_CFG, device="cpu")
-    verified = []
-    # the reference verifies a ready candidate; record it and reject
+def _rejecting(record):
+    """A port `verify_loop` that records the candidate and rejects."""
+    def verify(cfg, cam, m, kf, cand, sampler):
+        record.append(int(cand))
+        return LoopVerification(T_corr=torch.eye(4), s_corr=torch.ones(()),
+                                n_inliers=torch.zeros((), dtype=torch.int32),
+                                accepted=torch.zeros((), dtype=torch.bool))
+    return verify
+
+
+def both_systems(monkeypatch, cfg=STREAK_CFG, cam_ref=CAM_REF, cam=CAM):
+    """(reference, port, candidates the reference verified, ... the port
+    verified): both verifications record the candidate and reject."""
+    ref = RefSystem(cam_ref, cfg)
+    port = SLAMSystem(cam, cfg, device="cpu")
+    verified, verified_port = [], []
     ref._verify_loop = lambda cfg, cam, m, kf, cand, key: (
         verified.append(int(cand)), _Rejected())[1]
-    return ref, port, verified
+    monkeypatch.setattr(port_system, "verify_loop", _rejecting(verified_port))
+    return ref, port, verified, verified_port
 
 
 def streaks(system):
@@ -160,29 +173,26 @@ SEQUENCE = [
 ]
 
 
-def test_consistency_streak_matches_reference():
-    ref, port, verified = both_systems()
-    raised = []
+def test_consistency_streak_matches_reference(monkeypatch):
+    ref, port, verified, verified_port = both_systems(monkeypatch)
+    went_on = []
     for step, pre in enumerate(SEQUENCE):
         before = len(verified)
         ref._try_close_loop(pre=pre)
-        try:
-            port._try_close_loop(pre=pre)
-            ready = []
-        except NotImplementedError as e:
-            assert "verify_loop" in str(e)
-            ready = [int(c) for c in re.search(r"\[([0-9, ]+)\]", str(e)).group(1).split(",")]
-            raised.append(step)
+        port._try_close_loop(pre=pre)
         assert streaks(ref) == streaks(port), step
-        # the port raises exactly where the reference goes on to verify,
-        # and names the same candidates in the same order
-        assert ready == verified[before:], step
-    assert raised == [5, 6]
+        # the port verifies exactly where the reference does, the same
+        # candidates in the same order
+        assert verified_port[before:] == verified[before:], step
+        if len(verified) > before:
+            went_on.append(step)
+    assert went_on == [5, 6] and verified_port == [2, 2, 10]
+    assert port.n_verify_loops == 3 and port.loop_log == []
     assert [s for _, s in port._consistent_groups] == [4, 3]
 
 
-def test_invalid_detection_clears_the_streak():
-    ref, port, _ = both_systems()
+def test_invalid_detection_clears_the_streak(monkeypatch):
+    ref, port, _, _ = both_systems(monkeypatch)
     for pre in SEQUENCE[:2]:
         ref._try_close_loop(pre=pre)
         port._try_close_loop(pre=pre)
@@ -192,10 +202,10 @@ def test_invalid_detection_clears_the_streak():
     assert port._consistent_groups == [] and ref._consistent_groups == []
 
 
-def test_gate_after_a_recent_loop():
+def test_gate_after_a_recent_loop(monkeypatch):
     """Within min_kfs_since_last keyframes of the last closed loop nothing
     is looked at, and the streak stays as it is."""
-    ref, port, _ = both_systems()
+    ref, port, _, _ = both_systems(monkeypatch)
     for s in (ref, port):
         s._try_close_loop(pre=SEQUENCE[0])
         s._last_loop_kf = 8
@@ -203,33 +213,37 @@ def test_gate_after_a_recent_loop():
     assert streaks(ref) == streaks(port) == [([2, 3, 4], 1)]
 
 
-def test_ready_candidate_raises_by_name():
-    _, port, _ = both_systems()
+def test_ready_candidate_raises_by_name(monkeypatch):
+    """A ready candidate is verified, no longer refused; what still raises
+    by name is the monocular Sim(3) loop (`fix_scale=False`), and only
+    with loop closing on."""
+    _, port, _, verified_port = both_systems(monkeypatch)
     port._consistent_groups = [(SEQUENCE[0][3][0], 2)]
-    with pytest.raises(NotImplementedError, match="verify_loop"):
-        port._try_close_loop(pre=SEQUENCE[0])
+    port._try_close_loop(pre=SEQUENCE[0])
+    assert verified_port == [3]
+    free_scale = config.SLAMConfig(map=config.MapConfig(max_points=4096, max_keyframes=F),
+                                   loop=config.LoopConfig(fix_scale=False))
+    with pytest.raises(NotImplementedError, match="fix_scale=False"):
+        SLAMSystem(CAM, free_scale, device="cpu")
+    SLAMSystem(CAM, free_scale.replace(loop=config.LoopConfig(
+        enabled=False, fix_scale=False)), device="cpu")
 
 
-def test_detection_on_the_current_keyframe(loop_map):
+def test_detection_on_the_current_keyframe(loop_map, monkeypatch):
     """`pre=None`: detect for the tracker's reference keyframe and fetch
-    once; both packages then hold the same groups."""
+    once; both packages then hold the same groups and go on to verify the
+    same candidates."""
     m_ref, m = loop_map
     cfg = loosened(BASE_CFG, 300)
-    ref = RefSystem(REF_TUM3, cfg)
-    port = SLAMSystem(TUM3, cfg, device="cpu")
-    verified = []
-    ref._verify_loop = lambda cfg, cam, m, kf, cand, key: (
-        verified.append(int(cand)), _Rejected())[1]
+    ref, port, verified, verified_port = both_systems(monkeypatch, cfg, REF_TUM3, TUM3)
     n_groups = 0
     for kf in range(int(m_ref.n_kfs)):
         ref.map, port.map = m_ref, m
         ref.ts = ref.ts._replace(ref_kf=jnp.asarray(kf, jnp.int32))
         port.ts = port.ts._replace(ref_kf=torch.tensor(kf, dtype=torch.int32))
         ref._try_close_loop()
-        try:
-            port._try_close_loop()
-        except NotImplementedError:
-            assert verified
+        port._try_close_loop()
         assert streaks(ref) == streaks(port), kf
+        assert verified == verified_port, kf
         n_groups += len(port._consistent_groups)
     assert port.n_detect_loops == int(m_ref.n_kfs) and n_groups > 0

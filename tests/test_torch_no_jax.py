@@ -4,8 +4,9 @@ SLAMSystem with mapping and the CRF on is built on the CPU and tracks
 four frames and a black one (keyframes, mapping passes, the flow chain, a
 relocalisation attempt), a second one with loop detection on runs the
 chunked `track_sequence` (batched front-end and LK, in-chunk keyframes,
-detect_loop), and nothing of the JAX package (lc_crf_slam_tpu) was
-imported. (A subprocess, because conftest.py has already imported jax
+detect_loop), a third closes a loop on a hand-built map with a drifted
+revisit (verify_loop, correct_loop, the budgeted global BA, the group-wide
+fuse), and nothing of the JAX package (lc_crf_slam_tpu) was imported. (A subprocess, because conftest.py has already imported jax
 into this one.)"""
 
 import os
@@ -59,6 +60,63 @@ poses = seq.track_sequence(np.stack([f.image for f in fr]),
 assert poses.shape == (4, 4, 4) and seq.get_trajectory()[1].shape == (5, 4, 4)
 assert seq.n_crf_steps == 2 and seq.n_detect_loops == seq.n_mapping_steps >= 1, (
     seq.n_crf_steps, seq.n_detect_loops, seq.n_mapping_steps)
+# a loop closure: keyframe 0 and keyframe 13 see one cloud of 200 points, 12
+# keyframes between look elsewhere, keyframe 13 is recorded 0.3 m off
+from lc_crf_slam_torch.geometry.camera import TUM3
+from lc_crf_slam_torch.geometry.se3 import exp_se3
+from lc_crf_slam_torch.models.frame import Frame
+from lc_crf_slam_torch.models.mapstate import add_keyframe, add_points, empty_map
+lcfg = SLAMConfig(loop=LoopConfig(min_kfs_since_last=5),
+                  map=MapConfig(max_points=4096, max_keyframes=32, max_features=256))
+gen = torch.Generator().manual_seed(8)
+n_pts, K = 200, 256
+lo, hi = torch.tensor([-2.0, -1.5, 2.5]), torch.tensor([2.0, 1.5, 6.0])
+pts = lo + (hi - lo) * torch.rand((n_pts, 3), generator=gen)
+def words():
+    return torch.randint(-2**31, 2**31, (n_pts, 8), generator=gen).to(torch.int32)
+def observing(pw, desc, Tcw):
+    pc = pw @ Tcw[:3, :3].T + Tcw[:3, 3]
+    uv = torch.stack([TUM3.fx * pc[:, 0] / pc[:, 2] + TUM3.cx,
+                      TUM3.fy * pc[:, 1] / pc[:, 2] + TUM3.cy], -1)
+    pad = lambda a: torch.cat([a, a.new_zeros((K - n_pts,) + a.shape[1:])])
+    z = pad(pc[:, 2])
+    return Frame(uv=pad(uv), level=torch.zeros(K, dtype=torch.int32), angle=torch.zeros(K),
+                 score=torch.ones(K), desc=pad(desc), depth=z,
+                 u_right=torch.where(z > 0, pad(uv[:, 0]) - TUM3.bf / z.clamp(min=1e-6), -1.0),
+                 valid=torch.arange(K) < n_pts)
+desc = words()
+m = empty_map(lcfg, "cpu")
+m, ids = add_points(m, pts, desc, torch.zeros(n_pts, 3), torch.zeros(n_pts),
+                    torch.full((n_pts,), 100.0), torch.ones(n_pts, dtype=torch.bool),
+                    torch.tensor(0, dtype=torch.int32))
+none = torch.full((K,), -1, dtype=torch.int32)
+eye = torch.eye(4)
+m, _ = add_keyframe(m, observing(pts, desc, eye), eye, torch.tensor(0.0),
+                    torch.cat([ids, none[n_pts:]]))
+for i in range(1, 13):
+    Ti = exp_se3(torch.tensor([0.2 * i, 0, 0, 0, 0.02 * i, 0]))
+    m, _ = add_keyframe(m, observing(pts + torch.tensor([8.0, 0, 0]), words(), Ti), Ti,
+                        torch.tensor(float(i)), none)
+T_true = exp_se3(torch.tensor([0.05, 0.02, 0.0, 0.0, 0.03, 0.0]))
+drift = torch.eye(4)
+drift[:3, 3] = torch.tensor([0.25, 0.1, -0.15])
+m, kf_loop = add_keyframe(m, observing(pts, desc, T_true), T_true @ drift,
+                          torch.tensor(13.0), none)
+closer = SLAMSystem(TUM3, lcfg, enable_mapping=False, enable_crf=False, device="cpu")
+closer.map, closer.initialized = m, True
+closer.ts = closer.ts._replace(ref_kf=kf_loop, Tcw=m.kf_Tcw[13])
+cands = np.full((lcfg.loop.retrieval_topk,), -1)
+cands[0] = 0
+groups = np.zeros((lcfg.loop.retrieval_topk, 32), bool)
+groups[0, 0] = True
+for _ in range(lcfg.loop.consistency_needed):
+    closer._try_close_loop(pre=(13, True, cands, groups))
+assert len(closer.loop_log) == 1 and closer.loop_log[0]["cand"] == 0, closer.loop_log
+assert closer._gba_pending is not None
+err = lambda mm: float(torch.linalg.norm(mm.kf_Tcw[13, :3, 3] - T_true[:3, 3]))
+assert err(closer.map) < 0.3 * err(m), (err(m), err(closer.map))
+closer.shutdown()
+assert closer._gba_pending is None and closer._gba_slices_run == 1
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")

@@ -96,28 +96,34 @@ def test_cuda_device_required_by_default():
         SLAMSystem(CAM, SLICE_CFG, enable_mapping=False, enable_crf=False)
 
 
-@pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion"])
+@pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion",
+                                  "fix_scale"])
 def test_unported_options_raise(what):
-    """What the port does not run yet raises: mapping's loop-closing fuse
-    (`fuse_duplicates(loop_mode=True)`), loop verification (a system with
-    loop detection on is built, with the CRF and mapping on and with both
-    off, and raises once a candidate is ready), the "direct" descriptor,
-    distortion."""
+    """What the port does not run raises by name: the "direct" descriptor,
+    distortion, and the monocular Sim(3) loop (`loop.fix_scale=False`).
+    What used to raise and is ported now runs: mapping's loop-closing fuse
+    (`fuse_duplicates(loop_mode=True)`, here on an empty map), and a ready
+    loop candidate, which a system with loop closing on (with the CRF and
+    mapping on, and with both off) verifies and, on an empty map,
+    rejects."""
     if what == "mapping":
         from lc_crf_slam_torch.models.mapping import fuse_duplicates
         from lc_crf_slam_torch.models.mapstate import empty_map
 
         m = empty_map(SLICE_CFG, "cpu")
-        with pytest.raises(NotImplementedError):
-            fuse_duplicates(SLICE_CFG, CAM, m, torch.tensor(0), loop_mode=True)
+        out = fuse_duplicates(SLICE_CFG, CAM, m, torch.tensor(0), loop_mode=True)
+        assert all(torch.equal(a, b) for a, b in zip(m, out))
         return
-    cfg = config.SLAMConfig(loop=config.LoopConfig(enabled=what in ("loop", "crf")))
+    cfg = config.SLAMConfig(loop=config.LoopConfig(enabled=what in ("loop", "crf")),
+                            map=config.MapConfig(max_points=4096, max_keyframes=32))
     cam = CAM
     kw = dict(enable_mapping=what == "crf", enable_crf=what == "crf")
     if what == "direct":
         cfg = cfg.replace(orb=config.ORBConfig(descriptor_variant="direct"))
     if what == "distortion":
         cam = Pinhole(**QVGA, k1=0.1)
+    if what == "fix_scale":
+        cfg = cfg.replace(loop=config.LoopConfig(fix_scale=False))
     if what in ("loop", "crf"):
         slam = SLAMSystem(cam, cfg, device="cpu", **kw)
         assert slam.enable_loop
@@ -126,10 +132,13 @@ def test_unported_options_raise(what):
         cands[0] = 2
         groups = np.zeros((topk, F), bool)
         groups[0, 1:4] = True
-        for kf in range(20, 20 + cfg.loop.consistency_needed - 1):
+        for kf in range(20, 20 + cfg.loop.consistency_needed):
+            assert slam.n_verify_loops == 0
             slam._try_close_loop(pre=(kf, True, cands, groups))
-        with pytest.raises(NotImplementedError, match="verify_loop"):
-            slam._try_close_loop(pre=(kf + 1, True, cands, groups))
+        assert slam.n_verify_loops == 1 and slam.loop_log == []
+        assert slam._gba_pending is None and [s for _, s in slam._consistent_groups] == [3]
         return
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match={
+            "direct": "descriptor_variant", "distortion": "undistortion",
+            "fix_scale": "fix_scale=False"}[what]):
         SLAMSystem(cam, cfg, device="cpu", **kw)

@@ -1,7 +1,8 @@
 """Shared fixtures for the port's parity tests (tests/test_torch_*.py):
 the small camera and configuration both packages run, rendered frames,
-the reference's own random draws for the consensus audit, and the
-run-and-compare of both packages' `track_sequence`."""
+the reference's own random draws (consensus audit, PnP, Horn RANSAC), a
+hand-built map with a drifted revisit, and the run-and-compare of both
+packages' `track_sequence`."""
 
 import numpy as np
 import torch
@@ -58,16 +59,28 @@ def reference_consensus_sampler(frame_idx: int):
 
 def use_reference_draws(port) -> None:
     """Make a port SLAMSystem draw what the reference SLAMSystem draws:
-    the audit's per-frame keys, and the relocalisation keys split off
-    PRNGKey(7) one attempt at a time."""
+    the audit's per-frame keys, and the relocalisation and loop
+    verification keys split off PRNGKey(7) one attempt at a time."""
     state = {"key": jax.random.PRNGKey(7)}
 
-    def reloc_sampler():
+    def next_key():
         state["key"], sub = jax.random.split(state["key"])
-        return reference_pnp_sampler(sub, batched=True)
+        return sub
 
     port._sampler = lambda: reference_consensus_sampler(int(port.ts.frame_idx))
-    port._reloc_sampler = reloc_sampler
+    port._reloc_sampler = lambda: reference_pnp_sampler(next_key(), batched=True)
+    port._loop_sampler = lambda: reference_horn_sampler(next_key())
+
+
+def reference_horn_sampler(key):
+    """A port `HornSampler` that makes the reference horn_ransac's draws
+    (`jax.random.choice(key, N, (n_hyp, 3), p=p_valid)`)."""
+    def sampler(p: torch.Tensor, n_hyp: int):
+        p_j = jnp.asarray(p.detach().cpu().numpy())
+        idx = jax.random.choice(key, p_j.shape[0], shape=(n_hyp, 3), p=p_j)
+        return torch.from_numpy(np.asarray(idx).astype(np.int64)).to(p.device)
+
+    return sampler
 
 
 def reference_pnp_sampler(key, batched: bool = False):
@@ -85,6 +98,100 @@ def reference_pnp_sampler(key, batched: bool = False):
         return torch.from_numpy(out.astype(np.int64)).to(n_valid.device)
 
     return sampler
+
+
+FLOAT_TOL = 1e-4       # float map fields after one stage (f32, other sum order)
+
+
+def assert_map_equal(ref, out, float_tol=FLOAT_TOL, rtol=0.0, skip=()):
+    """A reference MapState against a port one: integer, bool and
+    descriptor fields exactly; float fields to float_tol (+ rtol relative)."""
+    from lc_crf_slam_torch import convert
+
+    got = convert.to_numpy(out)
+    for f in ref._fields:
+        if f in skip:
+            continue
+        a = np.asarray(getattr(ref, f))
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, got[f], atol=float_tol, rtol=rtol, err_msg=f)
+        else:
+            np.testing.assert_array_equal(a, got[f], err_msg=f)
+
+
+# ---- a hand-built map with a drifted revisit ----------------------------
+
+def _observing_frame(rng, pts_w, descs, Tcw, cfg, noise=0.0):
+    """World points projected through Tcw into a reference Frame (with
+    depth), TUM3 camera."""
+    from lc_crf_slam_tpu.geometry.camera import TUM3, project_points
+    from lc_crf_slam_tpu.models.frame import frame_from_observations
+
+    pc = pts_w @ np.asarray(Tcw)[:3, :3].T + np.asarray(Tcw)[:3, 3]
+    uv, z = project_points(TUM3, jnp.asarray(pc))
+    uv = np.asarray(uv) + rng.normal(0, noise, (len(pts_w), 2))
+    return frame_from_observations(uv.astype(np.float32), np.asarray(z, np.float32),
+                                   descs, cfg.map.max_features, TUM3)
+
+
+def drifted_loop_map(cfg, n_mid=12, drift_t=(0.25, 0.1, -0.15), seed=8):
+    """The reference's loop-closing test map (tests/test_loopclosing.py),
+    built with the reference: keyframe 0 observes a cloud of 400 points at
+    the true pose, `n_mid` keyframes look elsewhere, and the last keyframe
+    re-observes the cloud from a pose recorded with drift. Returns the
+    reference (map, loop keyframe index, true pose, drifted pose)."""
+    from lc_crf_slam_tpu.geometry.se3 import exp_se3
+    from lc_crf_slam_tpu.models.mapstate import add_keyframe, add_points, empty_map
+
+    rng = np.random.default_rng(seed)
+    n_pts, K = 400, cfg.map.max_features
+    pts = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts),
+                    rng.uniform(2.5, 6, n_pts)], -1).astype(np.float32)
+    descs = rng.integers(0, 2**32, (n_pts, 8), dtype=np.uint32)
+    m = empty_map(cfg)
+    f0 = _observing_frame(rng, pts, descs, np.eye(4), cfg)
+    m, ids = add_points(m, jnp.asarray(pts), jnp.asarray(descs[:K]),
+                        jnp.zeros((n_pts, 3)), jnp.zeros(n_pts),
+                        jnp.full((n_pts,), 100.0), jnp.ones(n_pts, bool),
+                        jnp.asarray(0))
+    no_obs = jnp.full((K,), -1, jnp.int32)
+    m, _ = add_keyframe(m, f0, jnp.eye(4), jnp.asarray(0.0),
+                        no_obs.at[jnp.arange(n_pts)].set(ids[:n_pts]))
+    for i in range(1, n_mid + 1):
+        descs_i = rng.integers(0, 2**32, (n_pts, 8), dtype=np.uint32)
+        Ti = np.asarray(exp_se3(jnp.asarray(
+            [0.3 * i / n_mid * 8, 0, 0, 0, 0.02 * i, 0], jnp.float32)))
+        fi = _observing_frame(rng, pts + np.array([8.0, 0, 0], np.float32), descs_i,
+                              Ti, cfg)
+        m, _ = add_keyframe(m, fi, jnp.asarray(Ti), jnp.asarray(float(i)), no_obs)
+    T_true = np.asarray(exp_se3(jnp.asarray([0.05, 0.02, 0.0, 0.0, 0.03, 0.0],
+                                            jnp.float32)))
+    f_loop = _observing_frame(rng, pts, descs, T_true, cfg)
+    dT = np.eye(4, dtype=np.float32)
+    dT[:3, 3] = drift_t
+    T_drift = (T_true @ dT).astype(np.float32)
+    m, kf_loop = add_keyframe(m, f_loop, jnp.asarray(T_drift),
+                              jnp.asarray(float(n_mid + 1)), no_obs)
+    return m, kf_loop, T_true, T_drift
+
+
+def with_loop_twins(m, kf_loop, T_true, T_drift):
+    """The drifted branch's own copies of the cloud (the loop keyframe's
+    observations back-projected through its drifted pose), observed by the
+    loop keyframe: what SearchAndFuse has to merge after the correction.
+    Returns (map, the number of points in the cloud)."""
+    from lc_crf_slam_tpu.models.mapstate import add_points
+
+    n = int(np.asarray(m.p_alive).sum())
+    pts, descs = np.asarray(m.p_xyz[:n]), np.asarray(m.p_desc[:n])
+    pc = pts @ T_true[:3, :3].T + T_true[:3, 3]
+    Twc = np.linalg.inv(T_drift)
+    pts_dup = (pc @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32)
+    m, dup_ids = add_points(m, jnp.asarray(pts_dup), jnp.asarray(descs),
+                            jnp.zeros((n, 3)), jnp.zeros(n), jnp.full((n,), 100.0),
+                            jnp.ones(n, bool), kf_loop)
+    return m._replace(kf_obs=m.kf_obs.at[kf_loop, :n].set(dup_ids[:n]),
+                      p_n_obs=m.p_n_obs.at[dup_ids].add(1)), n
 
 
 # ---- track_sequence in both packages ----------------------------------
