@@ -12,8 +12,9 @@
      (200x300, not a multiple of the tile; 256x256);
    - `fast_cell_best` (FAST + NMS + best corner per 16-px cell, all levels
      of all frames of a batch in one launch): `best` bitwise, `y` and `x`
-     exact, at B=1 (the 8 levels of a rendered frame) and at B=15 (a
-     chunk of rendered frames).
+     exact, at B=1 (the 8 levels of a rendered frame), at B=15 (a chunk of
+     rendered frames) and at B=30 (a stereo chunk: 15 left and 15 right
+     eyes).
 4. Tracking phase: SLAMSystem.track_rgbd with mapping and the CRF off on
    31 rendered 640x480 frames of a 600-point static world, default map
    capacities (32768 points, 320 keyframes, 1024 features). Checks one
@@ -57,9 +58,38 @@
    Each phase sets the wrappers' launch counts to 0 just before it drives
    its path and reads them just after: the map kernel is off every path
    and must count 0 there.
-8. Prints the kernel report as one JSON line (`launches` = the four
-   paths' own, the kernel checks' launches apart), the card line again,
-   and last `{"ok": true, "device": {...}}`.
+8. Stereo phase: `SLAMSystem.track_stereo` with the default SLAMConfig on
+   tests/test_mono_stereo_e2e.py's stereo world (24 TUM3 frames, 900
+   points, the right eye rendered one baseline bf / fx along camera x).
+   Checks 0 lost frames, ATE < 0.05 m (the reference's bar), >= 3
+   keyframes, one fused launch a frame (both eyes in one batch), 1 host
+   sync on a non-keyframe frame.
+9. Stereo sequence phase: bench.py's stereo run, the dynamic phase's
+   billboard frames 0-30 with their right eyes through
+   `track_sequence_stereo(..., chunk=15)`, mapping and the CRF on, the
+   default config. Checks 0 lost frames, ATE < 0.05 m, >= 2 keyframes,
+   1 + chunks fused launches, at most frames + 1 host syncs a chunk;
+   prints ms/frame beside the sequence phase's.
+10. Monocular phase: tests/test_mono_stereo_e2e.py's monocular world (30
+   TUM3 frames, 700 points) through `track_monocular`, default config.
+   Checks the reference test's: a `mono_init` event, initialized, > 60
+   map points, finite poses after the initialisation; and one fused
+   launch a frame, the design's host syncs on the frames before the
+   initialisation (1 on the reference frame, 2 on a failed attempt, 3 on
+   the initialising frame) and 1 on a non-keyframe frame after it. Prints
+   the initialising frame, the Python line behind each host sync up to
+   it, keyframes, lost frames after it and the scale-aligned ATE.
+11. Sim(3) closure stage: on the map the monocular phase leaves,
+   `correct_loop_sim3` is handed a closure between its newest keyframe
+   and keyframe 0 (s_corr = 0.8, a small rotation and shift), on the
+   card and on a CPU copy of the same map. Checks `kf_Tcw` and the live
+   points' `p_xyz` agree to 1e-3, the same live points, and no host sync
+   inside; prints the ms of two calls on the card and one on the CPU,
+   each with a synchronize on both sides. (The reference's own mono loop
+   world never fires a closure, so the closure is handed in.)
+12. Prints the kernel report as one JSON line (`launches` = the paths'
+   own, the kernel checks' launches apart), the card line again, and
+   last `{"ok": true, "device": {...}}`.
 
 Any failure raises, and the exit code is then non-zero. Without a CUDA
 device the script exits non-zero at once.
@@ -87,6 +117,15 @@ SEQ_CHUNK = 15
 LOOP_FRAMES = 130
 LOOP_ATE_BAR_M = 0.35     # the reference's bar for this world in throughput mode
 LOOP_KF_ATE_FACTOR = 1.1  # keyframes' ATE after the closure vs just before it
+STEREO_FRAMES = 24
+STEREO_ATE_BAR_M = 0.05   # the reference's bar (tests/test_mono_stereo_e2e.py)
+MONO_FRAMES = 30
+# host reads of a monocular frame before the map exists, by its event: the
+# reference frame's feature count; the eight-point solver's status and the
+# verdict with the match count; and on success the map's point count
+MONO_INIT_READS = {"mono_wait": 1, "mono_init_fail": 2, "mono_init": 3}
+SIM3_S_CORR = 0.8
+SIM3_TOL = 1e-3           # card vs CPU after correct_loop_sim3: poses, metres
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
@@ -216,12 +255,12 @@ def check_cell_kernel(name, grays, cfg):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray) -> float:
+def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray, with_scale: bool = False) -> float:
     from lc_crf_slam_torch.geometry.align import umeyama_alignment
 
     src = torch.as_tensor(est_twc[:, :3, 3], dtype=torch.float64)
     dst = torch.as_tensor(gt_twc[:, :3, 3], dtype=torch.float64)
-    s, R, t = umeyama_alignment(src, dst)
+    s, R, t = umeyama_alignment(src, dst, with_scale=with_scale)
     err = torch.linalg.norm(s * (src @ R.T) + t - dst, dim=-1)
     return float(torch.sqrt(torch.mean(err ** 2)))
 
@@ -230,17 +269,26 @@ def count_syncs(caught) -> int:
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+def sync_sites(caught) -> list:
+    """file:line (relative to the repo) of the Python call behind each host
+    sync that torch's sync debug mode reported."""
+    return [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
 def path_launches():
     """(fused, map) kernel launches since `fast_kernel.reset_launches()`."""
     from lc_crf_slam_torch.ops import fast_kernel
     return fast_kernel.cell_launches, fast_kernel.launches
 
 
-def drive(slam, frames, counted):
-    """Every frame through `slam.track_rgbd`, each timed to a synchronize:
-    (ms per frame, {frame: host syncs} for the frames in `counted`, counted
-    in torch's sync debug mode, (fused, map) kernel launches of the path,
-    peak device MiB)."""
+def drive(slam, frames, counted, track=None, sites=None):
+    """Every frame through `track(frame)` (default `slam.track_rgbd`), each
+    timed to a synchronize: (ms per frame, {frame: host syncs} for the
+    frames in `counted`, counted in torch's sync debug mode, (fused, map)
+    kernel launches of the path, peak device MiB). A dict `sites` fills
+    with each counted frame's `sync_sites`."""
+    track = track or (lambda f: slam.track_rgbd(f.image, f.depth_image, f.timestamp))
     from lc_crf_slam_torch.ops import fast_kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -251,12 +299,14 @@ def drive(slam, frames, counted):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn" if k in counted else "default")
             t0 = time.perf_counter()
-            slam.track_rgbd(f.image, f.depth_image, f.timestamp)
+            track(f)
             torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
         if k in counted:
             syncs[k] = count_syncs(caught)
+            if sites is not None:
+                sites[k] = sync_sites(caught)
     return (frame_ms, syncs, path_launches(),
             torch.cuda.max_memory_allocated() / 2**20)
 
@@ -385,7 +435,7 @@ def count_chunks(slam) -> list:
         return (slam.n_verify_loops, len(slam.loop_log),
                 sum(s.get("event") == "chunk_lost" for s in slam.stats))
 
-    def counted_chunk(g, d, t):
+    def counted_chunk(g, d, t, *rest):
         torch.cuda.synchronize()
         before = rare()
         with warnings.catch_warnings(record=True) as caught:
@@ -393,7 +443,7 @@ def count_chunks(slam) -> list:
             torch.cuda.set_sync_debug_mode("warn")
             t0 = time.perf_counter()
             try:
-                out = inner(g, d, t)
+                out = inner(g, d, t, *rest)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
@@ -409,9 +459,10 @@ def count_chunks(slam) -> list:
     return chunks
 
 
-def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
+def sequence_phase(cam, frames, world, dyn_ms: float):
     """The chunked throughput path at full width (see the module
-    docstring, step 6); returns the path's fused-kernel launches."""
+    docstring, step 6); returns (the path's fused-kernel launches, its
+    ms/frame)."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.models.system import SLAMSystem
@@ -482,7 +533,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float) -> int:
                                  f"of {n} frames, at most {n + 1} allowed")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return got[0]
+    return got[0], ms_frame
 
 
 def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
@@ -649,6 +700,222 @@ def loop_phase(cam) -> int:
     return got[0]
 
 
+def stereo_phase(cam) -> int:
+    """`track_stereo` at full width (see the module docstring, step 8);
+    returns the path's fused-kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(cam=cam, n_frames=STEREO_FRAMES, n_static=900, n_dynamic=0,
+                           seed=11, trajectory="line", pixel_noise=0.0, depth_noise=0.0)
+    frames = [world.frame(k, render=True) for k in range(STEREO_FRAMES)]
+    rights = [world.right_eye(k) for k in range(STEREO_FRAMES)]
+    slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
+    frame_ms, syncs, got, peak_mb = drive(
+        slam, frames, range(3, STEREO_FRAMES),
+        track=lambda f: slam.track_stereo(f.image, rights[round(f.timestamp * 30)],
+                                          f.timestamp))
+    slam.flush_stats()
+    _, poses = slam.get_trajectory()
+    _, gt = world.groundtruth()
+    if poses.shape != (STEREO_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"stereo phase: bad trajectory, shape {poses.shape}")
+    ate = ate_rmse(poses, gt)
+    statuses = [s.get("status", 1) for s in slam.stats]
+    is_kf = [bool(s.get("need_kf")) for s in slam.stats]
+    n_kfs = int(slam.map.n_kfs)
+    other_at = [k for k in range(3, STEREO_FRAMES) if not is_kf[k]]
+    print(f"stereo [{card_line()}]: {STEREO_FRAMES} pairs, median "
+          f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3, first "
+          f"frame {frame_ms[0]:.1f} ms; ATE {ate:.5f} m, keyframes {n_kfs}, lost frames "
+          f"{statuses.count(2)}, mapping_step calls {slam.n_mapping_steps}, kernel "
+          f"launches (fused, map) {got}, peak memory {peak_mb:.0f} MiB, host syncs per "
+          f"frame from the 4th {list(syncs.values())}")
+    check_launches("stereo phase", got, STEREO_FRAMES)
+    if 2 in statuses:
+        raise AssertionError(f"stereo phase: tracking lost: statuses {statuses}")
+    if n_kfs < 3:
+        raise AssertionError(f"stereo phase: only {n_kfs} keyframes")
+    if not ate < STEREO_ATE_BAR_M:
+        raise AssertionError(f"stereo phase: ATE {ate} m >= {STEREO_ATE_BAR_M} m")
+    if syncs[other_at[0]] != 1:
+        raise AssertionError(f"stereo phase: {syncs[other_at[0]]} host syncs on "
+                             f"non-keyframe frame {other_at[0]}, expected 1")
+    return got[0]
+
+
+def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
+    """`track_sequence_stereo` at full width (see the module docstring,
+    step 9); returns the path's fused-kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.ops import fast_kernel
+
+    slam = SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
+                      device="cuda")
+    slam.seq_phases = {}
+    lefts = np.stack([f.image for f in frames]).astype(np.float32)
+    chunks = count_chunks(slam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast_kernel.reset_launches()
+    poses_tcw = slam.track_sequence_stereo(lefts, np.stack(rights).astype(np.float32),
+                                           [f.timestamp for f in frames], chunk=SEQ_CHUNK)
+    torch.cuda.synchronize()
+    got = path_launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    n_seq = len(frames) - 1
+    n_chunks = -(-n_seq // SEQ_CHUNK)
+    slam.flush_stats()
+    _, poses = slam.get_trajectory()
+    _, gt = world.groundtruth()
+    if poses.shape != (len(frames), 4, 4) or not np.all(np.isfinite(poses)) \
+            or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
+        raise AssertionError(f"stereo sequence phase: bad trajectory, shapes "
+                             f"{poses.shape} {poses_tcw.shape}")
+    ate = ate_rmse(poses, gt[:len(frames)])
+    n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
+                 if s.get("event") == "chunk_lost")
+    n_kfs = int(slam.map.n_kfs)
+    ms_frame = sum(c[2] for c in chunks) / n_seq
+    print(f"stereo sequence [{card_line()}]: {n_seq} chunked pairs in {n_chunks} chunks "
+          f"of {SEQ_CHUNK}: {ms_frame:.2f} ms/frame (chunks "
+          f"{[round(c[2], 1) for c in chunks]} ms); the RGB-D sequence phase on the same "
+          f"left frames: {seq_ms:.2f} ms/frame")
+    print(f"stereo sequence: seq_phases, host ms/frame: " + ", ".join(
+        f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items()))
+    print(f"stereo sequence: ATE {ate:.5f} m, keyframes {n_kfs}, lost frames {n_lost}, "
+          f"mapping_step calls {slam.n_mapping_steps}, crf_step calls "
+          f"{slam.n_crf_steps}, kernel launches (fused, map) {got}, host syncs per "
+          f"chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames, peak "
+          f"memory {peak_mb:.0f} MiB")
+    check_launches("stereo sequence phase", got, 1 + n_chunks)
+    if n_lost or int(slam.ts.status) != 1:
+        raise AssertionError(f"stereo sequence phase: {n_lost} lost frames, final "
+                             f"status {int(slam.ts.status)}")
+    if n_kfs < 2:
+        raise AssertionError(f"stereo sequence phase: only {n_kfs} keyframes")
+    for n, syncs, *_ in chunks:
+        if syncs > n + 1:
+            raise AssertionError(f"stereo sequence phase: {syncs} host syncs in a "
+                                 f"chunk of {n} frames, at most {n + 1} allowed")
+    if not ate < STEREO_ATE_BAR_M:
+        raise AssertionError(f"stereo sequence phase: ATE {ate} m >= "
+                             f"{STEREO_ATE_BAR_M} m")
+    return got[0]
+
+
+def mono_phase(cam):
+    """`track_monocular` at full width (see the module docstring, step
+    10); returns (the path's fused-kernel launches, the system)."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(cam=cam, n_frames=MONO_FRAMES, n_static=700, n_dynamic=0,
+                           seed=19, trajectory="line", pixel_noise=0.0, depth_noise=0.0)
+    frames = [world.frame(k, render=True) for k in range(MONO_FRAMES)]
+    slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
+    sites = {}
+    frame_ms, syncs, got, peak_mb = drive(
+        slam, frames, range(MONO_FRAMES),
+        track=lambda f: slam.track_monocular(f.image, f.timestamp), sites=sites)
+    slam.flush_stats()
+    events = [s.get("event", "track") for s in slam.stats]
+    init_at = events.index("mono_init") if "mono_init" in events else None
+    _, poses = slam.get_trajectory()
+    gt_times, gt = world.groundtruth()
+    after = np.asarray([int(r) >= 0 for _, _, r in slam.trajectory])
+    n_kfs = int(slam.map.n_kfs)
+    n_points = int(slam.map.p_alive.sum())
+    statuses = [s.get("status", 1) for s in slam.stats]
+    lost_after = statuses[init_at + 1:].count(2) if init_at is not None else None
+    ate = ate_rmse(poses[after], gt[after], with_scale=True) if after.sum() > 2 else None
+    tracked = [k for k in range(MONO_FRAMES) if events[k] == "track"]
+    other_at = [k for k in tracked if not slam.stats[k].get("need_kf")]
+    before_init = [syncs[k] for k in range(init_at + 1 if init_at is not None else 0)]
+    print(f"mono [{card_line()}]: {MONO_FRAMES} frames, events until the "
+          f"initialisation {events[:(init_at or 0) + 1]}, initialised on frame "
+          f"{init_at}; ms of those frames {[round(t, 1) for t in frame_ms[:(init_at or 0) + 1]]}, "
+          f"median {statistics.median(frame_ms[-10:]):.2f} ms over the last "
+          f"10 frames; keyframes {n_kfs}, live points {n_points}, lost frames after the "
+          f"initialisation {lost_after}, scale-aligned ATE over the {int(after.sum())} "
+          f"frames from it {ate if ate is None else round(ate, 5)} m, kernel launches "
+          f"(fused, map) {got}, peak memory {peak_mb:.0f} MiB; host syncs on the frames "
+          f"up to the initialisation {before_init}, after it "
+          f"{[syncs[k] for k in tracked]}")
+    check_launches("mono phase", got, MONO_FRAMES)
+    if init_at is None or not slam.initialized:
+        raise AssertionError(f"mono phase: no initialisation: {events}")
+    if int(slam.map.n_points) <= 60:
+        raise AssertionError(f"mono phase: {int(slam.map.n_points)} map points")
+    if not np.all(np.isfinite(poses[after])) or not np.all(np.isfinite(
+            slam.ts.Tcw.cpu().numpy())):
+        raise AssertionError("mono phase: poses not finite after the initialisation")
+    print(f"mono: host sync sites on the frames up to the initialisation "
+          f"{[sites[k] for k in range(len(before_init))]}")
+    design = [MONO_INIT_READS[e] for e in events[:len(before_init)]]
+    if before_init != design:
+        raise AssertionError(f"mono phase: host syncs before the initialisation "
+                             f"{before_init}, the design's {design}")
+    if other_at and syncs[other_at[0]] != 1:
+        raise AssertionError(f"mono phase: {syncs[other_at[0]]} host syncs on "
+                             f"non-keyframe frame {other_at[0]}, expected 1")
+    return got[0], slam
+
+
+def sim3_closure_stage(slam) -> None:
+    """`correct_loop_sim3` handed a closure on the monocular map, on the
+    card and on a CPU copy (see the module docstring, step 11)."""
+    from lc_crf_slam_torch.geometry.se3 import exp_se3
+    from lc_crf_slam_torch.models.loopclosing import correct_loop_sim3
+    from lc_crf_slam_torch.models.mapstate import MapState
+
+    m = slam.map
+    kf = int(m.n_kfs) - 1
+    T_corr = exp_se3(torch.tensor([0.02, -0.01, 0.03, 0.01, -0.02, 0.015]))
+    args = (torch.tensor(kf, dtype=torch.int32), torch.tensor(0, dtype=torch.int32),
+            T_corr, torch.tensor(SIM3_S_CORR))
+    cuda_args = tuple(a.cuda() for a in args)
+    ms, syncs = [], []
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                out = correct_loop_sim3(slam.cfg, slam.cam, m, *cuda_args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        syncs.append(count_syncs(caught))
+    m_cpu = MapState(*(x.cpu() for x in m))
+    t0 = time.perf_counter()
+    ref = correct_loop_sim3(slam.cfg, slam.cam, m_cpu, *args)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    alive, alive_cpu = out.p_alive.cpu(), ref.p_alive
+    both = alive & alive_cpu
+    d_kf = float((out.kf_Tcw.cpu() - ref.kf_Tcw).abs().max())
+    d_p = float((out.p_xyz.cpu() - ref.p_xyz)[both].abs().max())
+    moved = float(torch.linalg.norm(out.kf_Tcw[kf, :3, 3] - m.kf_Tcw[kf, :3, 3]))
+    print(f"sim3 closure [{card_line()}]: correct_loop_sim3 keyframe {kf} -> 0 on "
+          f"{int(m.n_kfs)} keyframes and {int(m.p_alive.sum())} live points, s_corr "
+          f"{SIM3_S_CORR}: card {ms[0]:.1f} ms then {ms[1]:.1f} ms, CPU {cpu_ms:.1f} ms; "
+          f"host syncs {syncs}; card vs CPU: kf_Tcw max abs diff {d_kf:.2e}, live "
+          f"p_xyz max abs diff {d_p:.2e} m, live points {int(alive.sum())} vs "
+          f"{int(alive_cpu.sum())}; the closing keyframe moved {moved:.4f}")
+    if syncs != [0, 0]:
+        raise AssertionError(f"sim3 closure: {syncs} host syncs inside correct_loop_sim3")
+    if not (d_kf <= SIM3_TOL and d_p <= SIM3_TOL and torch.equal(alive, alive_cpu)):
+        raise AssertionError(f"sim3 closure: card vs CPU kf_Tcw {d_kf}, p_xyz {d_p}, "
+                             f"live points {int(alive.sum())} vs {int(alive_cpu.sum())}")
+    if not (np.isfinite(d_kf) and moved > 0):
+        raise AssertionError("sim3 closure: the closing keyframe did not move")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -684,8 +951,9 @@ def main() -> int:
                                seed=7, trajectory="line", billboard=True,
                                bb_speed=0.04)
     dyn_frames = [dyn_world.frame(k, render=True) for k in range(DYN_FRAMES)]
-    print(f"rendered {N_FRAMES} + {DYN_FRAMES} frames {cam.width}x{cam.height} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    dyn_rights = [dyn_world.right_eye(k) for k in range(DYN_FRAMES)]
+    print(f"rendered {N_FRAMES} + {DYN_FRAMES} frames and {DYN_FRAMES} right eyes "
+          f"{cam.width}x{cam.height} in {time.perf_counter() - t0:.1f} s")
 
     # ---- kernels vs plain --------------------------------------------------
     levels = build_pyramid(torch.as_tensor(frames[0].image, device=dev),
@@ -701,12 +969,20 @@ def main() -> int:
         device=dev)
     cells_b1 = check_cell_kernel("one frame", chunk_grays[:1], cfg)
     cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
+    stereo_grays = torch.cat([chunk_grays, torch.as_tensor(
+        np.stack(dyn_rights[1:1 + SEQ_CHUNK]).astype(np.float32), device=dev)])
+    cells_b30 = check_cell_kernel("one stereo chunk", stereo_grays, cfg)
 
-    # ---- the four phases at full width ------------------------------------
+    # ---- the phases at full width -------------------------------------------
     by_path = {"tracking": tracking_phase(cam, frames, world)}
     by_path["dynamic"], dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world)
-    by_path["sequence"] = sequence_phase(cam, dyn_frames, dyn_world, dyn_ms)
+    by_path["sequence"], seq_ms = sequence_phase(cam, dyn_frames, dyn_world, dyn_ms)
     by_path["loop"] = loop_phase(cam)
+    by_path["stereo"] = stereo_phase(cam)
+    by_path["stereo_sequence"] = stereo_sequence_phase(cam, dyn_frames, dyn_rights,
+                                                       dyn_world, seq_ms)
+    by_path["mono"], mono = mono_phase(cam)
+    sim3_closure_stage(mono)
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the fused kernel: {by_path}")
 
@@ -720,11 +996,11 @@ def main() -> int:
         "route": "cuda",
         "source": "lc_crf_slam_torch/csrc/fast_cells.cu",
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
-        # the four paths' own launches, each counted from 0 (no launch of
+        # the paths' own launches, each counted from 0 (no launch of
         # the kernel checks above is among them)
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(cells_b1["max_abs_err"], cells_b15["max_abs_err"]),
+        "max_abs_err": max(c["max_abs_err"] for c in (cells_b1, cells_b15, cells_b30)),
         # one launch for a chunk of 15 frames (the throughput path's shape)
         "ms": cells_b15["ms"],
         "plain_ms": cells_b15["plain_ms"],
@@ -734,6 +1010,9 @@ def main() -> int:
         # one launch for one frame (the per-frame path's shape)
         "one_frame": {k: cells_b1[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by")},
+        # one launch for a stereo chunk: 15 left and 15 right eyes
+        "stereo_chunk": {k: cells_b30[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "max_abs_err")},
     }, {
         "name": "fast_nms_dual",
         "route": "cuda",

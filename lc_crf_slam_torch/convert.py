@@ -3,7 +3,7 @@
 The system has no learned weights; its state is the map, the tracking
 state and the frame. These helpers turn a reference `MapState` /
 `TrackState` / `Frame` / `BAProblem` / `LoopCandidate` / `LoopVerification` /
-`PoseGraph` (any NamedTuple of arrays, read
+`PoseGraph` / `Sim3Graph` / `MonoInit` (any NamedTuple of arrays, read
 with `np.asarray`; a map state at any point of the pipeline, mapping
 included) into the port's tensors, and a port state back into numpy
 arrays, so a test can run the reference for a few frames, continue in
@@ -21,9 +21,10 @@ import torch
 
 from ._ops import i32_to_u32, u32_to_i32
 from .models.frame import Frame
+from .models.initializer import MonoInit
 from .models.loopclosing import LoopCandidate, LoopVerification
 from .models.mapstate import MapState
-from .models.posegraph import PoseGraph
+from .models.posegraph import PoseGraph, Sim3Graph
 from .models.tracking import TrackState
 from .ops.schur import BAProblem
 
@@ -65,6 +66,14 @@ def loop_verification_to_torch(ver, device: str | torch.device = "cpu") -> LoopV
 
 def pose_graph_to_torch(g, device: str | torch.device = "cpu") -> PoseGraph:
     return _convert(g, PoseGraph, device)
+
+
+def sim3_graph_to_torch(g, device: str | torch.device = "cpu") -> Sim3Graph:
+    return _convert(g, Sim3Graph, device)
+
+
+def mono_init_to_torch(res, device: str | torch.device = "cpu") -> MonoInit:
+    return _convert(res, MonoInit, device)
 
 
 def consistent_groups_to_numpy(groups) -> list:

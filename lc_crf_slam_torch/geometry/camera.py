@@ -1,9 +1,10 @@
 """Pinhole RGB-D camera model (counterpart of lc_crf_slam_tpu/geometry/camera.py).
 
 The port keeps its own `Pinhole` with the reference's field order, since
-the reference module imports jax. The port runs distortion-free cameras
-only: `undistort_pixels` is the identity path, and `SLAMSystem` refuses a
-camera with distortion terms.
+the reference module imports jax. Keypoints are undistorted once, at
+extraction (Frame::UndistortKeyPoints): `undistort_pixels` inverts the
+radial-tangential model by the reference's 8 fixed-point iterations, and
+is the identity for a camera without distortion terms.
 """
 
 from __future__ import annotations
@@ -35,13 +36,44 @@ class Pinhole(NamedTuple):
         return any(abs(v) > 1e-12 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
-def undistort_pixels(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
-    """Identity for distortion-free cameras, the only ones the port runs."""
-    if cam.has_distortion:
-        raise NotImplementedError("the port does not undistort keypoints yet")
-    return uv
+def _rad_tan(cam: Pinhole, x: torch.Tensor, y: torch.Tensor):
+    """(radial factor, tangential dx, dy) of normalised coordinates."""
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    dx = 2.0 * cam.p1 * x * y + cam.p2 * (r2 + 2.0 * x * x)
+    dy = cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * x * y
+    return radial, dx, dy
 
 
-# TUM RGB-D freiburg3 preset (distortion-free, like the reference's TUM3).
+def distort_normalized(cam: Pinhole, xy: torch.Tensor) -> torch.Tensor:
+    """Apply rad-tan distortion to normalised coordinates (..., 2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    radial, dx, dy = _rad_tan(cam, x, y)
+    return torch.stack([x * radial + dx, y * radial + dy], dim=-1)
+
+
+def undistort_pixels(cam: Pinhole, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Invert rad-tan distortion for pixels (..., 2) by fixed-point
+    iteration (the cv::undistortPoints scheme) with a fixed trip count.
+    Identity when the camera has no distortion terms."""
+    if not cam.has_distortion:
+        return uv
+    xd = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
+                      (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
+    x = xd
+    for _ in range(iters):
+        radial, dx, dy = _rad_tan(cam, x[..., 0], x[..., 1])
+        x = torch.stack([xd[..., 0] - dx, xd[..., 1] - dy], dim=-1) / radial[..., None]
+    return torch.stack([x[..., 0] * cam.fx + cam.cx, x[..., 1] * cam.fy + cam.cy], dim=-1)
+
+
+# TUM RGB-D presets (Examples/RGB-D/TUM{1,2,3}.yaml): freiburg1 and 2 with
+# their distortion terms, freiburg3 distortion-free.
+TUM1 = Pinhole(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
+               width=640, height=480, bf=40.0,
+               k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314)
+TUM2 = Pinhole(fx=520.908620, fy=521.007327, cx=325.141442, cy=249.701764,
+               width=640, height=480, bf=40.0,
+               k1=0.231222, k2=-0.784899, p1=-0.003257, p2=-0.000105, k3=0.917205)
 TUM3 = Pinhole(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
                width=640, height=480, bf=40.0)

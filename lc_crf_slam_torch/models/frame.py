@@ -4,15 +4,18 @@
 pyramid -> dual-threshold FAST + NMS + best corner per cell (one launch
 of the fused CUDA kernel on the card, for all levels of all frames of a
 batch) -> top-k over cells -> IC orientation + steered BRIEF-256 -> depth
-lookup -> virtual right coordinate.
+lookup -> virtual right coordinate. `frame_from_observations` makes a
+Frame from given keypoints instead (the observation-level entry points).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from .._ops import u32_to_i32
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole, undistort_pixels
 from ..ops.fast_kernel import fast_cell_best
@@ -55,9 +58,10 @@ def orient_and_describe(cfg: SLAMConfig, img_l: torch.Tensor, uv_l: torch.Tensor
 
 
 def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,
-                 depth_imgs: torch.Tensor) -> List[Frame]:
+                 depth_imgs: Optional[torch.Tensor]) -> List[Frame]:
     """(B, H, W) float32 grayscale + (B, H, W) float32 depth [m] -> B
-    Frames, each what `build_frame` makes of its image. The pyramids, the
+    Frames, each what `build_frame` makes of its image; `depth_imgs=None`
+    for images without depth (stereo eyes, monocular). The pyramids, the
     FAST launch and the top-k over cells are batched; orientation and
     descriptors run per frame and level."""
     orb = cfg.orb
@@ -82,10 +86,13 @@ def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,
         valid = torch.cat([val_l[b] for _, _, val_l in picked])
         uv_und = undistort_pixels(cam, uv)
 
-        # depth lookup at the detection location
-        xi = torch.clamp(torch.round(uv[:, 0]).long(), 0, cam.width - 1)
-        yi = torch.clamp(torch.round(uv[:, 1]).long(), 0, cam.height - 1)
-        d = depth_imgs[b][yi, xi]
+        # depth lookup at the raw (distorted) detection location
+        if depth_imgs is None:
+            d = torch.zeros_like(uv[:, 0])
+        else:
+            xi = torch.clamp(torch.round(uv[:, 0]).long(), 0, cam.width - 1)
+            yi = torch.clamp(torch.round(uv[:, 1]).long(), 0, cam.height - 1)
+            d = depth_imgs[b][yi, xi]
         has_d = (d > 0) & valid
         u_right = torch.where(
             has_d, uv_und[:, 0] - cam.bf / torch.where(has_d, d, 1.0), -1.0)
@@ -103,6 +110,39 @@ def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,
 
 
 def build_frame(cam: Pinhole, cfg: SLAMConfig, gray: torch.Tensor,
-                depth_img: torch.Tensor) -> Frame:
-    """(H, W) float32 grayscale + (H, W) float32 depth [m] -> Frame."""
-    return build_frames(cam, cfg, gray[None], depth_img[None])[0]
+                depth_img: Optional[torch.Tensor]) -> Frame:
+    """(H, W) float32 grayscale + (H, W) float32 depth [m] (or None) -> Frame."""
+    return build_frames(cam, cfg, gray[None],
+                        None if depth_img is None else depth_img[None])[0]
+
+
+def frame_from_observations(uv, depth, desc, capacity: int,
+                            cam: Pinhole | None = None,
+                            device: str | torch.device = "cpu") -> Frame:
+    """A Frame built directly from observations (keypoints (M, 2), depth
+    (M,), descriptors (M, 8) as uint32 words or their int32 bit-views),
+    bypassing the image front-end: the pipeline-test path. Pads or
+    truncates to `capacity`; every feature is level 0 with angle 0."""
+    if isinstance(desc, np.ndarray) and desc.dtype == np.uint32:
+        desc = u32_to_i32(desc)
+    n = min(len(uv), capacity)
+
+    def pad(x, dtype):
+        x = torch.as_tensor(x[:n]).to(device=device, dtype=dtype)
+        return torch.cat([x, x.new_zeros((capacity - n,) + tuple(x.shape[1:]))])
+
+    uvp = pad(uv, torch.float32)
+    dp = pad(depth, torch.float32)
+    valid = torch.arange(capacity, device=device) < n
+    bf = cam.bf if cam is not None else 40.0
+    has_d = (dp > 0) & valid
+    return Frame(
+        uv=uvp,
+        level=torch.zeros((capacity,), dtype=torch.int32, device=device),
+        angle=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        score=torch.where(valid, 1.0, 0.0),
+        desc=pad(desc, torch.int32),
+        depth=torch.where(valid, dp, 0.0),
+        u_right=torch.where(has_d, uvp[:, 0] - bf / torch.where(dp > 0, dp, 1.0), -1.0),
+        valid=valid,
+    )

@@ -1,5 +1,5 @@
 """Loop closing and relocalisation (counterpart of
-lc_crf_slam_tpu/models/loopclosing.py for the RGB-D sensor).
+lc_crf_slam_tpu/models/loopclosing.py).
 
 KeyFrameDatabase::DetectLoopCandidates (`detect_loop`): cosine retrieval
 over the keyframes' descriptor embeddings, gated by the lowest similarity
@@ -16,12 +16,12 @@ followed by a motion-only refinement; acceptance rests on that last
 stage. CorrectLoop (`correct_loop`): the corrective transform applied to
 the current covisible group, a pose graph over chain + strong
 covisibility + the loop edge, map points moved with their reference
-keyframe, SearchAndFuse on the current keyframe. `global_ba` is the joint
-matrix-free Schur LM over the whole map (`ops/schur.py::solve_ba_cg`),
-run by the system in budgeted slices; `search_and_fuse` over the group
-follows once the budget is spent. None of these reads the device on the
-host. `correct_loop_sim3` (monocular: `cfg.loop.fix_scale=False`) and
-`global_ba_alternating` are not ported.
+keyframe, SearchAndFuse on the current keyframe; `correct_loop_sim3` is
+its monocular form (`cfg.loop.fix_scale=False`) over Sim(3) nodes.
+`global_ba` is the joint matrix-free Schur LM over the whole map
+(`ops/schur.py::solve_ba_cg`), run by the system in budgeted slices;
+`search_and_fuse` over the group follows once the budget is spent. None of these reads the device on the
+host. `global_ba_alternating` is not carried over.
 
 Tracking::Relocalization (`relocalize`): retrieval of the RELOC_CANDS
 keyframes whose descriptor embeddings best match the frame (0.75 × best
@@ -52,7 +52,7 @@ from .ba import pose_optimize
 from .frame import Frame
 from .mapping import fuse_duplicates
 from .mapstate import MapState, _descriptor_embedding, covisibility, observed_mask
-from .posegraph import PoseGraph, optimize_pose_graph
+from .posegraph import PoseGraph, Sim3Graph, optimize_pose_graph, optimize_pose_graph_sim3
 from .sim3opt import optimize_sim3
 
 RELOC_CANDS = 4   # retrieval candidates tried per attempt
@@ -268,15 +268,42 @@ def search_and_fuse(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Te
     return m
 
 
+def _loop_group(cfg: SLAMConfig, m: MapState, covis: torch.Tensor,
+                kf_idx: torch.Tensor) -> torch.Tensor:
+    """(F,) bool: the current keyframe and its live covisible group."""
+    return put_row(take_row(covis, kf_idx) >= cfg.mapping.covisibility_min_weight,
+                   kf_idx, True) & m.kf_alive
+
+
+def _essential_edges(cfg: SLAMConfig, m: MapState, covis: torch.Tensor,
+                     kf_idx: torch.Tensor, cand_s: torch.Tensor):
+    """The essential graph's edges (e_i, e_j, e_w, e_valid): the chain,
+    the COVIS_EDGES strongest covisibility pairs at least two keyframes
+    apart, and last the loop edge kf_idx -> cand_s (weight 5)."""
+    F, dev = m.capacity_kfs, m.p_xyz.device
+    ids = torch.arange(F, device=dev)
+    seq_i, seq_j = ids[1:], ids[:-1]
+    seq_valid = m.kf_alive[seq_i] & m.kf_alive[seq_j] & (seq_i < m.n_kfs)
+    apart = torch.triu(torch.ones((F, F), dtype=torch.bool, device=dev), 2)
+    cv = torch.where(apart & m.kf_alive[:, None] & m.kf_alive[None, :], covis, 0.0)
+    topv, topidx = stable_topk(cv.reshape(-1), COVIS_EDGES)
+    cv_valid = topv >= cfg.loop.covis_edge_weight
+    e_i = torch.cat([seq_i, topidx // F, kf_idx.reshape(1).long()])
+    e_j = torch.cat([seq_j, topidx % F, cand_s.reshape(1).long()])
+    e_w = torch.cat([torch.ones(e_i.shape[0] - 1, dtype=torch.float32, device=dev),
+                     torch.full((1,), 5.0, dtype=torch.float32, device=dev)])
+    e_valid = torch.cat([seq_valid, cv_valid, torch.ones_like(cv_valid[:1])])
+    return e_i, e_j, e_w, e_valid
+
+
 def correct_loop(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor,
                  cand: torch.Tensor, T_corr: torch.Tensor) -> MapState:
     """CorrectLoop: correct the current covisible group, optimise the
     essential graph, move the map points with their reference keyframe."""
     F = m.capacity_kfs
-    dev = m.p_xyz.device
+    ids = torch.arange(F, device=m.p_xyz.device)
     covis = covisibility(m)
-    group = put_row(take_row(covis, kf_idx) >= cfg.mapping.covisibility_min_weight,
-                    kf_idx, True) & m.kf_alive
+    group = _loop_group(cfg, m, covis, kf_idx)
     cand_s = torch.clamp(cand, min=0)
 
     Tcw_old = m.kf_Tcw
@@ -288,25 +315,14 @@ def correct_loop(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tenso
     # chain and strong covisibility edges measured from the poses before
     # the correction (odometry), the loop edge from the corrected relative
     # pose; the loop candidate and keyframe 0 are the anchors
-    ids = torch.arange(F, device=dev)
-    seq_i, seq_j = ids[1:], ids[:-1]
-    seq_valid = m.kf_alive[seq_i] & m.kf_alive[seq_j] & (seq_i < m.n_kfs)
-    apart = torch.triu(torch.ones((F, F), dtype=torch.bool, device=dev), 2)
-    cv = torch.where(apart & m.kf_alive[:, None] & m.kf_alive[None, :], covis, 0.0)
-    topv, topidx = stable_topk(cv.reshape(-1), COVIS_EDGES)
-    cv_valid = topv >= cfg.loop.covis_edge_weight
-    e_i = torch.cat([seq_i, topidx // F, kf_idx.reshape(1).long()])
-    e_j = torch.cat([seq_j, topidx % F, cand_s.reshape(1).long()])
+    e_i, e_j, e_w, e_valid = _essential_edges(cfg, m, covis, kf_idx, cand_s)
     rel_meas = Tcw_old[e_i[:-1]] @ se3_inverse(Tcw_old[e_j[:-1]])
     loop_rel = (take_row(Tcw_old, kf_idx) @ T_corr_inv) @ se3_inverse(
         take_row(Tcw_old, cand_s))
-    e_w = torch.cat([torch.ones(e_i.shape[0] - 1, dtype=torch.float32, device=dev),
-                     torch.full((1,), 5.0, dtype=torch.float32, device=dev)])
     g = PoseGraph(
         Tcw=Tcw_corr, node_valid=m.kf_alive & (ids < m.n_kfs),
         node_fixed=(ids == 0) | (ids == cand), e_i=e_i, e_j=e_j,
-        e_rel=torch.cat([rel_meas, loop_rel[None]]), e_w=e_w,
-        e_valid=torch.cat([seq_valid, cv_valid, torch.ones_like(cv_valid[:1])]))
+        e_rel=torch.cat([rel_meas, loop_rel[None]]), e_w=e_w, e_valid=e_valid)
     Tcw_new = optimize_pose_graph(g, n_iters=cfg.loop.pose_graph_iters)
 
     # each point moves with its reference keyframe: Twc_new Tcw_old
@@ -316,6 +332,65 @@ def correct_loop(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tenso
                    p_xyz=torch.where(m.p_alive[:, None], p_new, m.p_xyz))
     # SearchAndFuse on the current keyframe only, the one the tracker
     # anchors on; the group waits for global BA (see `search_and_fuse`)
+    return search_and_fuse(cfg, cam, m, kf_idx, budget=1)
+
+
+def correct_loop_sim3(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor,
+                      cand: torch.Tensor, T_corr: torch.Tensor,
+                      s_corr: torch.Tensor) -> MapState:
+    """CorrectLoop for the monocular sensor (`cfg.loop.fix_scale=False`):
+    the essential graph over Sim(3) nodes, whose free scale absorbs the
+    accumulated scale drift. The corrected current group gets scale
+    1 / s_corr; after the optimisation the node poses fold the scale back
+    into the translation (Tiw = [R, t / s]) and every map point moves
+    through its reference keyframe's Sim(3) change, its distance range
+    scaled with it."""
+    F = m.capacity_kfs
+    ids = torch.arange(F, device=m.p_xyz.device)
+    # verify_loop exports T_corr with the scale folded into the
+    # translation: rebuild the Sim(3) world correction
+    S_corr_inv = sim3_inverse((s_corr, T_corr[:3, :3], T_corr[:3, 3] * s_corr))
+    covis = covisibility(m)
+    group = _loop_group(cfg, m, covis, kf_idx)
+    cand_s = torch.clamp(cand, min=0)
+
+    Tcw_old = m.kf_Tcw
+    S_old = sim3_from_se3(Tcw_old)
+    S_grp = sim3_compose(S_old, S_corr_inv)             # S_cw' of every keyframe
+    s_n = torch.where(group, S_grp[0], S_old[0])
+    R_n = torch.where(group[:, None, None], S_grp[1], S_old[1])
+    t_n = torch.where(group[:, None], S_grp[2], S_old[2])
+
+    # chain and covisibility edges from the poses before the correction
+    # (scale-1 odometry), the loop edge from the corrected current pose
+    e_i, e_j, e_w, e_valid = _essential_edges(cfg, m, covis, kf_idx, cand_s)
+    rel = Tcw_old[e_i[:-1]] @ se3_inverse(Tcw_old[e_j[:-1]])
+    S_loop = sim3_compose(sim3_compose(sim3_from_se3(take_row(Tcw_old, kf_idx)), S_corr_inv),
+                          sim3_inverse(sim3_from_se3(take_row(Tcw_old, cand_s))))
+    node_valid = m.kf_alive & (ids < m.n_kfs)
+    g = Sim3Graph(
+        s=s_n, R=R_n, t=t_n, node_valid=node_valid,
+        node_fixed=(ids == 0) | (ids == cand), e_i=e_i, e_j=e_j,
+        e_s=torch.cat([torch.ones_like(e_w[:-1]), S_loop[0].reshape(1)]),
+        e_R=torch.cat([rel[:, :3, :3], S_loop[1][None]]),
+        e_t=torch.cat([rel[:, :3, 3], S_loop[2][None]]), e_w=e_w, e_valid=e_valid)
+    S_new = optimize_pose_graph_sim3(g, n_iters=cfg.loop.pose_graph_iters,
+                                     fix_scale=False)
+    Tcw_new = torch.where(node_valid[:, None, None], se3_from_sim3(S_new), Tcw_old)
+
+    # p' = S_new^-1(S_old(p)) through the point's reference keyframe
+    # (CorrectLoop's eigP3Dw -> Srw -> corrected Swc)
+    ref = torch.clamp(m.p_first_kf, 0, F - 1).long()
+    s_a, R_a, t_a = S_old[0][ref], S_old[1][ref], S_old[2][ref]
+    pc = s_a[:, None] * torch.einsum("pij,pj->pi", R_a, m.p_xyz) + t_a
+    S_inv = sim3_inverse(S_new)
+    s_b, R_b, t_b = S_inv[0][ref], S_inv[1][ref], S_inv[2][ref]
+    p_new = s_b[:, None] * torch.einsum("pij,pj->pi", R_b, pc) + t_b
+    # the scale-invariance distance range follows the local scale change
+    s_ratio = torch.where(m.p_alive, s_a / torch.clamp(S_new[0][ref], min=1e-9), 1.0)
+    m = m._replace(kf_Tcw=Tcw_new,
+                   p_xyz=torch.where(m.p_alive[:, None], p_new, m.p_xyz),
+                   p_min_dist=m.p_min_dist * s_ratio, p_max_dist=m.p_max_dist * s_ratio)
     return search_and_fuse(cfg, cam, m, kf_idx, budget=1)
 
 

@@ -24,14 +24,30 @@ ready candidates, and on acceptance the pose-graph correction. Global BA
 then runs off the hot path in budgeted slices (`_pump_gba`: one slice per
 frame or per chunk), and the group-wide SearchAndFuse once the budget is
 spent; exporting a trajectory or `shutdown` finishes a pending budget.
-The stereo and monocular entry points (and with them the Sim(3) loop,
-`cfg.loop.fix_scale=False`), the "direct" descriptor and lens distortion
-are not ported; asking for one raises `NotImplementedError`.
+The three sensors of the reference run through its entry points, each of
+which pins `cfg.sensor` before the first frame (`_set_sensor`):
+- RGB-D: `track_rgbd`, `track_sequence`, `track_observations`;
+- stereo: `track_stereo` and `track_sequence_stereo` build both eyes in
+  one `build_frames` batch (one FAST launch a frame, or a chunk) and give
+  the left eye depth by row matching (`ops/stereo.py`); everything after
+  is the RGB-D pipeline;
+- monocular: `track_monocular` and `track_observations_mono` bootstrap by
+  two-view initialisation (`models/initializer.py`), map by triangulation
+  only, and close loops over Sim(3) (`correct_loop_sim3`,
+  `cfg.loop.fix_scale=False`).
+Only the "direct" descriptor raises `NotImplementedError`.
 
 `track_rgbd` reads the device once per frame (the keyframe decision and
-the tracking status); a keyframe frame reads it once more for the
-capacity warning and once for the loop detection, a relocalisation
-attempt twice more, and every verified loop candidate once (its verdict).
+the tracking status), and so does a stereo or monocular frame once the
+map exists; a keyframe frame reads it once more for the capacity warning
+and once for the loop detection, a relocalisation attempt twice more, and
+every verified loop candidate once (its verdict). Before the monocular
+map exists a frame reads it once while it waits for a reference frame
+(its feature count), twice on a failed initialisation attempt (the
+eight-point solver's status; the verdict with the match count) and three
+times on success (and the map's point count). Tables made on the host and
+cached per device (the front-end's, triangulation's K^-1) cost one more
+read each at their first use in a process.
 """
 
 from __future__ import annotations
@@ -50,16 +66,19 @@ from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import se3_inverse
 from ..ops.lk_flow import lk_track, lk_track_batch
+from ..ops.match import hamming_matrix, match_nn, projection_gate
 from ..ops.pnp import uniform_sampler
 from ..ops.ransac import multinomial_sampler
+from ..ops.stereo import stereo_match
 from ..utils.io_tum import write_trajectory_tum
 from .ba import draw_consensus
 from .crf import crf_step
-from .frame import Frame, build_frame, build_frames
-from .loopclosing import (correct_loop, detect_loop, global_ba, relocalize,
-                          search_and_fuse, verify_loop)
+from .frame import Frame, build_frame, build_frames, frame_from_observations
+from .initializer import SAMPLE as MONO_SAMPLE, initialize_mono
+from .loopclosing import (correct_loop, correct_loop_sim3, detect_loop, global_ba,
+                          relocalize, search_and_fuse, verify_loop)
 from .mapping import mapping_step
-from .mapstate import MapState, empty_map
+from .mapstate import MapState, add_keyframe, add_points, empty_map
 from .tracking import (
     TrackState,
     empty_track_state,
@@ -72,20 +91,14 @@ from .tracking import (
 _AUDIT_SEED = 17   # the reference keys its audit draws with PRNGKey(17)
 _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
 _LOOP_SEED = 11    # the port's own stream for the loop verification's draws
+_MONO_SEED = 19    # ... and for the two-view initialisation's
 
 
-def _check_ported(cam: Pinhole, cfg: SLAMConfig) -> None:
-    missing = []
+def _check_ported(cfg: SLAMConfig) -> None:
     if cfg.orb.descriptor_variant != "matmul":
-        missing.append(f"descriptor_variant={cfg.orb.descriptor_variant!r}")
-    if cam.has_distortion:
-        missing.append("keypoint undistortion (camera has distortion terms)")
-    if cfg.loop.enabled and not cfg.loop.fix_scale:
-        missing.append("loop.fix_scale=False (the monocular Sim(3) loop: "
-                       "correct_loop_sim3 and the Sim3 pose graph)")
-    if missing:
         raise NotImplementedError(
-            "not ported to lc_crf_slam_torch yet: " + "; ".join(missing))
+            "not carried into lc_crf_slam_torch: "
+            f"descriptor_variant={cfg.orb.descriptor_variant!r}")
 
 
 def _project(cam: Pinhole, Tcw: torch.Tensor, pw: torch.Tensor):
@@ -171,7 +184,7 @@ def _to_host(items: Sequence) -> np.ndarray:
 
 
 class SLAMSystem:
-    """Single-session RGB-D SLAM on one device.
+    """Single-session SLAM (RGB-D, stereo or monocular) on one device.
 
     `device` defaults to CUDA and raises if no card is present; the CPU
     runs only when asked for (`device="cpu"`), as the tests do.
@@ -193,7 +206,7 @@ class SLAMSystem:
         self.enable_crf = self.cfg.crf.enabled if enable_crf is None else enable_crf
         self.enable_loop = self.cfg.loop.enabled
         self.seq_phases: Optional[dict] = None
-        _check_ported(cam, self.cfg)
+        _check_ported(self.cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -233,14 +246,154 @@ class SLAMSystem:
         # "kf": the closing keyframe}
         self._gba_pending: Optional[dict] = None
         self._gba_slices_run = 0
+        # the monocular reference frame the next frame initialises against
+        self._mono_ref: Optional[tuple] = None
+
+    def _set_sensor(self, mode: str) -> None:
+        """Pin the config's sensor mode ("rgbd", "stereo", "monocular") to
+        the entry point in use, before the first frame (the reference fixes
+        eSensor at System construction): switching later would change the
+        keyframe policy mid-run."""
+        if self.cfg.sensor == mode:
+            return
+        if self.initialized:
+            raise RuntimeError(f"sensor mode is {self.cfg.sensor!r}; cannot switch "
+                               f"to {mode!r} after initialization")
+        self.cfg = self.cfg.replace(sensor=mode)
+        self.__dict__.pop("_chunk_cfgs", None)
 
     # ------------------------------------------------------------------ api
     def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
         """Process one RGB-D frame ((H, W) grayscale 0-255 and depth in
         metres, numpy or tensor); returns Tcw (4, 4) on the device."""
+        self._set_sensor("rgbd")
         gray, depth = self._upload(gray), self._upload(depth)
         frame = build_frame(self.cam, self.cfg, gray, depth)
         return self._track_frame(frame, timestamp, gray)
+
+    def track_stereo(self, gray_left, gray_right, timestamp: float) -> torch.Tensor:
+        """System::TrackStereo: a rectified pair ((H, W) each) in, Tcw out.
+        Both eyes' features come from one batched front-end, the left ones
+        gain depth by row matching, then the RGB-D pipeline applies."""
+        self._set_sensor("stereo")
+        gray_left, gray_right = self._upload(gray_left), self._upload(gray_right)
+        frame = self._stereo_frames(gray_left[None], gray_right[None])[0]
+        return self._track_frame(frame, timestamp, gray_left)
+
+    def _stereo_frames(self, grays_left: torch.Tensor,
+                       grays_right: torch.Tensor) -> List[Frame]:
+        """(B, H, W) left and right images -> B depth-carrying left Frames
+        (Frame::ComputeStereoMatches): all 2B images in one `build_frames`
+        call, then the row match of each pair."""
+        cam, B = self.cam, grays_left.shape[0]
+        frames = build_frames(cam, self.cfg, torch.cat([grays_left, grays_right]), None)
+        out = []
+        for fl, fr in zip(frames[:B], frames[B:]):
+            u_right, depth = stereo_match(cam, fl.uv, fl.level, fl.desc, fl.valid,
+                                          fr.uv, fr.level, fr.desc, fr.valid)
+            out.append(fl._replace(u_right=u_right, depth=depth))
+        return out
+
+    def track_monocular(self, gray, timestamp: float) -> torch.Tensor:
+        """System::TrackMonocular: one image in, Tcw out (the identity until
+        the two-view initialisation succeeds; up to scale after)."""
+        self._set_sensor("monocular")
+        gray = self._upload(gray)
+        frame = build_frame(self.cam, self.cfg, gray, None)     # no depth, no uR
+        if not self.initialized:
+            return self._try_mono_init(frame, timestamp, gray)
+        return self._track_frame(frame, timestamp, gray)
+
+    def track_observations(self, uv, depth, desc, timestamp: float) -> torch.Tensor:
+        """Pipeline-test entry: track a frame given its observations
+        (keypoints, depth, descriptors) instead of an image."""
+        self._set_sensor("rgbd")
+        frame = frame_from_observations(uv, depth, desc, self.cfg.map.max_features,
+                                        self.cam, self.device)
+        return self._track_frame(frame, timestamp)
+
+    def track_observations_mono(self, uv, desc, timestamp: float) -> torch.Tensor:
+        """Observation-level monocular entry: `track_monocular` without the
+        image front-end (two-view initialisation, triangulation-only
+        mapping, the Sim(3) loop)."""
+        self._set_sensor("monocular")
+        frame = frame_from_observations(uv, np.zeros((len(uv),), np.float32), desc,
+                                        self.cfg.map.max_features, self.cam, self.device)
+        if not self.initialized:
+            return self._try_mono_init(frame, timestamp, None)
+        return self._track_frame(frame, timestamp)
+
+    def _try_mono_init(self, frame: Frame, timestamp: float,
+                       gray: Optional[torch.Tensor]) -> torch.Tensor:
+        """Initializer: the first frame with more than 100 features becomes
+        the reference; each next frame is matched against it and tried as
+        the second view. On success keyframes 0 (the reference, at I) and
+        1 (this frame) and the triangulated points make the map; a failure
+        with fewer than 100 matches replaces the reference frame."""
+        cfg, cam, dev = self.cfg, self.cam, self.device
+        eye = torch.eye(4, device=dev)
+        self._n_frames += 1
+        if self._mono_ref is None:
+            if int(frame.valid.sum()) > 100:
+                self._mono_ref = (frame, timestamp)
+            self.trajectory.append((timestamp, np.eye(4, dtype=np.float32), -1))
+            self.stats.append({"t": timestamp, "event": "mono_wait"})
+            return eye
+        ref, t_ref = self._mono_ref
+        gate = (ref.valid[:, None] & frame.valid[None, :]
+                & projection_gate(ref.uv, frame.uv, 100.0))
+        mm = match_nn(hamming_matrix(ref.desc, frame.desc), mask=gate,
+                      max_dist=cfg.matcher.th_low, ratio=0.9, mutual=True)
+        res = initialize_mono(cam, ref.uv, frame.uv[mm.idx], mm.valid,
+                              self._mono_sampler())
+        # the verdict and the match count in one read
+        accepted, n_matches = torch.stack(
+            [res.accepted.to(torch.int64), mm.valid.sum()]).tolist()
+        if not accepted:
+            if n_matches < 100:
+                self._mono_ref = (frame, timestamp)
+            self.trajectory.append((timestamp, np.eye(4, dtype=np.float32), -1))
+            self.stats.append({"t": timestamp, "event": "mono_init_fail"})
+            return eye
+        # the initial map: keyframe 0 (the reference frame) at I, keyframe 1
+        # (this frame) at Tcw2, the triangulated points observed by both
+        K = cfg.map.max_features
+        sf = cfg.orb.scale_factor
+        normal = torch.zeros((K, 3), device=dev)
+        normal[:, 2] = -1.0
+        max_d = torch.linalg.norm(res.xyz, dim=-1) * sf ** ref.level.to(torch.float32)
+        min_d = max_d / sf ** (cfg.orb.n_levels - 1)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.map, ids = add_points(
+            self.map, res.xyz, ref.desc, normal, min_d, max_d, res.ok,
+            torch.zeros((), **i32), tomb_dyn_threshold=cfg.crf.dynamic_threshold,
+            n_obs_init=0)       # both add_keyframe calls below count
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.map, _ = add_keyframe(self.map, ref, eye, torch.full((), t_ref, **f32), ids)
+        # cur_obs[mm.idx] = ids where ok; every other row writes -1 into
+        # slot K - 1, and the last write to a slot wins (XLA's CPU scatter)
+        tgt = torch.where(res.ok, mm.idx, K - 1)
+        rows = torch.arange(K, device=dev)
+        last = torch.full((K,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+            0, tgt, rows, "amax")
+        vals = torch.where(res.ok, ids, -1)
+        cur_obs = torch.where(last >= 0, vals[torch.clamp(last, min=0)], -1).to(torch.int32)
+        self.map, kf1 = add_keyframe(self.map, frame, res.Tcw2,
+                                     torch.full((), timestamp, **f32), cur_obs)
+        self.ts = empty_track_state(cfg, dev)._replace(
+            Tcw=res.Tcw2, last_uv=frame.uv, last_ur=frame.u_right,
+            last_depth=frame.depth, last_level=frame.level, last_angle=frame.angle,
+            last_desc=frame.desc, last_valid=frame.valid, last_obs=cur_obs,
+            ref_kf=kf1, ref_matches=torch.sum((cur_obs >= 0).to(torch.int32)),
+            status=torch.ones((), **i32))
+        self.initialized = True
+        self._mono_ref = None
+        # the initialising frame is keyframe 1: identity relative pose
+        self.trajectory.append((timestamp, np.eye(4, dtype=np.float32), kf1))
+        self.stats.append({"t": timestamp, "event": "mono_init",
+                           "n_points": int(self.map.n_points)})
+        self._last_gray = gray
+        return res.Tcw2
 
     def _upload(self, img) -> torch.Tensor:
         """Host image -> contiguous float32 on the device; from pinned
@@ -260,6 +413,11 @@ class SLAMSystem:
         """PnP sample indices of this frame's relocalisation attempt."""
         self._gen.manual_seed(_RELOC_SEED * 1_000_003 + self._n_frames)
         return uniform_sampler(self._gen)
+
+    def _mono_sampler(self):
+        """Eight-point sample sets of this frame's initialisation attempt."""
+        self._gen.manual_seed(_MONO_SEED * 1_000_003 + self._n_frames)
+        return multinomial_sampler(self._gen, MONO_SAMPLE)
 
     def _loop_sampler(self):
         """Horn RANSAC minimal sets of this loop verification (the
@@ -351,8 +509,11 @@ class SLAMSystem:
     # ------------------------------------------------------ throughput mode
     def track_sequence_stereo(self, grays_left, grays_right, timestamps,
                               chunk: int = 8) -> np.ndarray:
-        raise NotImplementedError(
-            "track_sequence_stereo: ops/stereo.py (stereo_match) is not ported")
+        """Throughput mode for stereo input ((N, H, W) left and right
+        images): `track_sequence` with the right eyes in place of depth;
+        a chunk's 2 x chunk images go through one `build_frames` call."""
+        return self.track_sequence(grays_left, grays_right, timestamps, chunk=chunk,
+                                   stereo=True)
 
     @functools.cached_property
     def _chunk_cfgs(self):
@@ -381,37 +542,38 @@ class SLAMSystem:
 
     def track_sequence(self, grays, depths, timestamps, chunk: int = 8,
                        stereo: bool = False) -> np.ndarray:
-        """Throughput mode: track N frames ((N, H, W) grayscale and depth)
-        in chunks of `chunk`. Keyframes are inserted, mapped and checked
-        for loops on the frame that asks for them, as in `track_rgbd`;
-        the CRF relabels once per chunk, and relocalisation is tried at a
-        chunk boundary after a persistent loss. Returns the (N, 4, 4)
-        camera poses Tcw (N - 1 when the first frame initialises the
-        map)."""
-        if stereo:
-            raise NotImplementedError(
-                "track_sequence(stereo=True): ops/stereo.py (stereo_match) "
-                "is not ported")
+        """Throughput mode: track N frames ((N, H, W) grayscale and depth,
+        or with `stereo` the right eyes in place of depth) in chunks of
+        `chunk`. Keyframes are inserted, mapped and checked for loops on
+        the frame that asks for them, as in `track_rgbd`; the CRF relabels
+        once per chunk, and relocalisation is tried at a chunk boundary
+        after a persistent loss. Returns the (N, 4, 4) camera poses Tcw
+        (N - 1 when the first frame initialises the map). As in the
+        reference, only that first frame pins the sensor mode: a call on a
+        map that already exists keeps the mode it has."""
         grays, depths = self._upload(grays), self._upload(depths)
         timestamps = np.asarray(timestamps, dtype=np.float64)
         if not self.initialized:
-            self.track_rgbd(grays[0], depths[0], float(timestamps[0]))
+            first = self.track_stereo if stereo else self.track_rgbd
+            first(grays[0], depths[0], float(timestamps[0]))
             grays, depths, timestamps = grays[1:], depths[1:], timestamps[1:]
         poses = [np.zeros((0, 4, 4), np.float32)]
         for i in range(0, grays.shape[0], chunk):
             j = min(i + chunk, grays.shape[0])
-            poses.append(self._track_chunk(grays[i:j], depths[i:j], timestamps[i:j]))
+            poses.append(self._track_chunk(grays[i:j], depths[i:j], timestamps[i:j],
+                                           stereo))
         return np.concatenate(poses)
 
-    def _track_chunk(self, g: torch.Tensor, d: torch.Tensor,
-                     timestamps: np.ndarray) -> np.ndarray:
-        """One chunk of `track_sequence`: (take, 4, 4) poses Tcw."""
+    def _track_chunk(self, g: torch.Tensor, d: torch.Tensor, timestamps: np.ndarray,
+                     stereo: bool = False) -> np.ndarray:
+        """One chunk of `track_sequence`: (take, 4, 4) poses Tcw. With
+        `stereo`, d holds the right eyes and no depth image exists."""
         cfg, cfg_map = self._chunk_cfgs
         cam, dev = self.cam, self.device
         take = g.shape[0]
         clock = _PhaseClock(self.seq_phases)
 
-        frames = build_frames(cam, cfg, g, d)
+        frames = self._stereo_frames(g, d) if stereo else build_frames(cam, cfg, g, d)
         clock.lap("frontend")
         prev_grays = [self._last_gray if self._last_gray is not None else g[0],
                       *g[:-1]]
@@ -499,7 +661,8 @@ class SLAMSystem:
         # (a one-frame inlier dip recovers by the motion model)
         persist_lost = statuses[-1] == 2 and (take < 2 or statuses[-2] == 2)
         if persist_lost and n_kfs >= 2:
-            fr = build_frame(cam, self.cfg, g[take - 1], d[take - 1])
+            fr = (self._stereo_frames(g[take - 1:], d[take - 1:])[0] if stereo
+                  else build_frame(cam, self.cfg, g[take - 1], d[take - 1]))
             rr = relocalize(self.cfg, cam, self.map, fr, self._reloc_sampler())
             if bool(rr.accepted):
                 self.ts = self.ts._replace(
@@ -577,8 +740,13 @@ class SLAMSystem:
                 ver.s_corr]).tolist()
             if not accepted:
                 continue
-            self.map = correct_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
-                                    ver.T_corr)
+            if self.cfg.loop.fix_scale:
+                self.map = correct_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
+                                        ver.T_corr)
+            else:
+                # monocular: the Sim(3) essential graph absorbs scale drift
+                self.map = correct_loop_sim3(self.cfg, self.cam, self.map, kf_dev,
+                                             cand_dev, ver.T_corr, ver.s_corr)
             # the current pose moved with its keyframe
             self.ts = self.ts._replace(
                 Tcw=take_row(self.map.kf_Tcw, self.ts.ref_kf),

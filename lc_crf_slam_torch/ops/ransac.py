@@ -35,14 +35,16 @@ class RansacResult(NamedTuple):
     n_inliers: torch.Tensor  # () int32
 
 
-def multinomial_sampler(generator: torch.Generator) -> HornSampler:
-    """Minimal sets ~ p with replacement from `generator`, on the device.
-    An all-zero p (no valid correspondence) draws uniformly: every
-    hypothesis then scores 0 inliers and the caller's gates reject it."""
+def multinomial_sampler(generator: torch.Generator,
+                        set_size: int = MIN_SET) -> HornSampler:
+    """Sets of `set_size` indices ~ p with replacement from `generator`, on
+    the device. An all-zero p (no valid correspondence) draws uniformly:
+    every hypothesis then scores 0 inliers and the caller's gates reject
+    it."""
     def sampler(p: torch.Tensor, n_hyp: int) -> torch.Tensor:
         safe = torch.where(torch.sum(p) > 0, p, torch.ones_like(p))
-        return torch.multinomial(safe, n_hyp * MIN_SET, replacement=True,
-                                 generator=generator).reshape(n_hyp, MIN_SET)
+        return torch.multinomial(safe, n_hyp * set_size, replacement=True,
+                                 generator=generator).reshape(n_hyp, set_size)
     return sampler
 
 

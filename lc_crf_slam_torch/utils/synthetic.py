@@ -308,6 +308,14 @@ class SyntheticWorld:
                 ).astype(np.float32)
         return frame
 
+    def right_eye(self, k: int) -> np.ndarray:
+        """Rendered right image of a rectified stereo rig at frame k: the
+        trajectory pose shifted by the baseline bf / fx along camera x (the
+        rig of tests/test_mono_stereo_e2e.py)."""
+        shift = np.eye(4)
+        shift[0, 3] = self.cam.bf / self.cam.fx
+        return self.frame(k, render=True, T_wc=self.gt_pose_twc(k) @ shift).image
+
     _PATCH_R = 19  # rendered texture half-width per point (full BRIEF support)
 
     def _point_texture(self, pid: int) -> np.ndarray:

@@ -125,3 +125,27 @@ def test_pinhole_and_config_match_reference():
     assert camera.TUM3 == tuple(ref_camera.TUM3)
     assert dataclasses.asdict(config.SLAMConfig()) == dataclasses.asdict(
         ref_config.SLAMConfig())
+
+
+@pytest.mark.parametrize("preset", ["TUM1", "TUM2"])
+def test_undistort_pixels_matches_reference(preset):
+    """The presets with distortion terms equal the reference's; the 8
+    fixed-point iterations agree to 1e-4 px over the whole image, and
+    distorting the result lands back on the pixel (to 0.05 px: 8
+    iterations converge that far at the corners of TUM1)."""
+    cam_ref, cam = getattr(ref_camera, preset), getattr(camera, preset)
+    assert cam == tuple(cam_ref) and cam.has_distortion
+    rng = np.random.default_rng(4)
+    uv = (rng.random((500, 2)) * [cam.width, cam.height]).astype(np.float32)
+    ref = np.asarray(ref_camera.undistort_pixels(cam_ref, jnp.asarray(uv)))
+    out = camera.undistort_pixels(cam, torch.from_numpy(uv))
+    np.testing.assert_allclose(ref, out.numpy(), atol=1e-4, rtol=0)
+    xy = torch.stack([(out[:, 0] - cam.cx) / cam.fx, (out[:, 1] - cam.cy) / cam.fy], -1)
+    xy_ref = jnp.asarray(xy.numpy())
+    np.testing.assert_allclose(np.asarray(ref_camera.distort_normalized(cam_ref, xy_ref)),
+                               camera.distort_normalized(cam, xy).numpy(), atol=1e-6)
+    back = camera.distort_normalized(cam, xy) * torch.tensor([cam.fx, cam.fy]) + \
+        torch.tensor([cam.cx, cam.cy])
+    assert float((back - torch.from_numpy(uv)).abs().max()) < 0.05
+    assert torch.equal(camera.undistort_pixels(camera.TUM3, torch.from_numpy(uv)),
+                       torch.from_numpy(uv))

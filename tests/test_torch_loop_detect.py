@@ -214,19 +214,22 @@ def test_gate_after_a_recent_loop(monkeypatch):
 
 
 def test_ready_candidate_raises_by_name(monkeypatch):
-    """A ready candidate is verified, no longer refused; what still raises
-    by name is the monocular Sim(3) loop (`fix_scale=False`), and only
-    with loop closing on."""
+    """A ready candidate is verified, no longer refused, and so it is with
+    the monocular Sim(3) loop (`fix_scale=False`), which used to raise by
+    name; only the "direct" descriptor still does."""
     _, port, _, verified_port = both_systems(monkeypatch)
     port._consistent_groups = [(SEQUENCE[0][3][0], 2)]
     port._try_close_loop(pre=SEQUENCE[0])
     assert verified_port == [3]
     free_scale = config.SLAMConfig(map=config.MapConfig(max_points=4096, max_keyframes=F),
                                    loop=config.LoopConfig(fix_scale=False))
-    with pytest.raises(NotImplementedError, match="fix_scale=False"):
-        SLAMSystem(CAM, free_scale, device="cpu")
-    SLAMSystem(CAM, free_scale.replace(loop=config.LoopConfig(
-        enabled=False, fix_scale=False)), device="cpu")
+    mono = SLAMSystem(CAM, free_scale, device="cpu")
+    mono._consistent_groups = [(SEQUENCE[0][3][0], 2)]
+    mono._try_close_loop(pre=SEQUENCE[0])
+    assert verified_port == [3, 3] and mono.loop_log == []
+    with pytest.raises(NotImplementedError, match="descriptor_variant"):
+        SLAMSystem(CAM, free_scale.replace(orb=config.ORBConfig(
+            descriptor_variant="direct")), device="cpu")
 
 
 def test_detection_on_the_current_keyframe(loop_map, monkeypatch):

@@ -6,8 +6,13 @@ relocalisation attempt), a second one with loop detection on runs the
 chunked `track_sequence` (batched front-end and LK, in-chunk keyframes,
 detect_loop), a third closes a loop on a hand-built map with a drifted
 revisit (verify_loop, correct_loop, the budgeted global BA, the group-wide
-fuse), and nothing of the JAX package (lc_crf_slam_tpu) was imported. (A subprocess, because conftest.py has already imported jax
-into this one.)"""
+fuse) and a fourth closes the same loop over Sim(3) (`fix_scale=False`:
+correct_loop_sim3), a stereo system runs `track_stereo` and
+`track_sequence_stereo` (ops/stereo.py), a monocular one
+`track_monocular` and `track_observations_mono` (models/initializer.py),
+and nothing of the JAX package (lc_crf_slam_tpu) was imported. (A
+subprocess, because conftest.py has already imported jax into this
+one.)"""
 
 import os
 import re
@@ -117,6 +122,38 @@ err = lambda mm: float(torch.linalg.norm(mm.kf_Tcw[13, :3, 3] - T_true[:3, 3]))
 assert err(closer.map) < 0.3 * err(m), (err(m), err(closer.map))
 closer.shutdown()
 assert closer._gba_pending is None and closer._gba_slices_run == 1
+# the same closure over Sim(3)
+mcfg = dataclasses.replace(lcfg, loop=LoopConfig(min_kfs_since_last=5, fix_scale=False))
+mono_closer = SLAMSystem(TUM3, mcfg, enable_mapping=False, enable_crf=False, device="cpu")
+mono_closer.map, mono_closer.initialized = m, True
+mono_closer.ts = mono_closer.ts._replace(ref_kf=kf_loop, Tcw=m.kf_Tcw[13])
+for _ in range(mcfg.loop.consistency_needed):
+    mono_closer._try_close_loop(pre=(13, True, cands, groups))
+assert len(mono_closer.loop_log) == 1, mono_closer.loop_log
+assert err(mono_closer.map) < 0.3 * err(m), (err(m), err(mono_closer.map))
+# stereo, per frame and chunked
+pairs = [(world.frame(k, render=True).image, world.right_eye(k)) for k in range(4)]
+stereo = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
+for k, (gl, gr) in enumerate(pairs[:2]):
+    stereo.track_stereo(gl, gr, 0.1 * k)
+poses = stereo.track_sequence_stereo(np.stack([p[0] for p in pairs[2:]]),
+                                     np.stack([p[1] for p in pairs[2:]]), [0.2, 0.3],
+                                     chunk=2)
+assert poses.shape == (2, 4, 4) and stereo.cfg.sensor == "stereo"
+assert stereo.stats[-1].get("status", 1) == 1 and int(stereo.map.n_points) > 0
+# monocular: images, and observations until the two-view initialisation
+mono = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=False, device="cpu")
+for k in range(2):
+    mono.track_monocular(world.frame(k, render=True).image, 0.1 * k)
+assert mono.cfg.sensor == "monocular" and mono.stats[0]["event"] == "mono_wait"
+mworld = SyntheticWorld(cam=cam, n_frames=12, n_static=400, n_dynamic=0, seed=2,
+                        trajectory="line")
+obs = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=False, device="cpu")
+for k in range(12):
+    f = mworld.frame(k)
+    obs.track_observations_mono(f.uv, f.desc, f.timestamp)
+events = [s.get("event") for s in obs.stats]
+assert "mono_init" in events and obs.initialized, events
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")

@@ -51,12 +51,16 @@ def test_batched_lk_equals_per_pair():
 
 
 def test_unported_branches_raise():
-    port = SLAMSystem(CAM, SEQ_CFG, device="cpu")
+    """The stereo branch, which raised before it was ported, runs: both
+    stereo entries initialise on their first pair (here black, so without
+    features), pin the sensor mode and track the rest in chunks."""
     z = np.zeros((2, 240, 320), np.float32)
-    with pytest.raises(NotImplementedError, match="stereo_match"):
-        port.track_sequence(z, z, [0.0, 0.1], stereo=True)
-    with pytest.raises(NotImplementedError, match="stereo_match"):
-        port.track_sequence_stereo(z, z, [0.0, 0.1])
+    for call in ("track_sequence", "track_sequence_stereo"):
+        port = SLAMSystem(CAM, SEQ_CFG, device="cpu")
+        kw = dict(stereo=True) if call == "track_sequence" else {}
+        poses = getattr(port, call)(z, z, [0.0, 0.1], **kw)
+        assert poses.shape == (1, 4, 4) and port.cfg.sensor == "stereo"
+        assert port.initialized and int(port.map.n_kfs) == 1
 
 
 @pytest.mark.slow

@@ -99,13 +99,14 @@ def test_cuda_device_required_by_default():
 @pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion",
                                   "fix_scale"])
 def test_unported_options_raise(what):
-    """What the port does not run raises by name: the "direct" descriptor,
-    distortion, and the monocular Sim(3) loop (`loop.fix_scale=False`).
+    """What the port does not run raises by name: the "direct" descriptor.
     What used to raise and is ported now runs: mapping's loop-closing fuse
-    (`fuse_duplicates(loop_mode=True)`, here on an empty map), and a ready
+    (`fuse_duplicates(loop_mode=True)`, here on an empty map); a ready
     loop candidate, which a system with loop closing on (with the CRF and
-    mapping on, and with both off) verifies and, on an empty map,
-    rejects."""
+    mapping on, with both off, and with the monocular Sim(3) loop,
+    `loop.fix_scale=False`) verifies and, on an empty map, rejects; and a
+    camera with distortion terms, whose keypoints the first frame's
+    keyframe holds undistorted as the reference's front-end makes them."""
     if what == "mapping":
         from lc_crf_slam_torch.models.mapping import fuse_duplicates
         from lc_crf_slam_torch.models.mapstate import empty_map
@@ -121,10 +122,24 @@ def test_unported_options_raise(what):
     if what == "direct":
         cfg = cfg.replace(orb=config.ORBConfig(descriptor_variant="direct"))
     if what == "distortion":
-        cam = Pinhole(**QVGA, k1=0.1)
+        import jax
+        from lc_crf_slam_tpu.geometry.camera import Pinhole as RefPinhole
+        from lc_crf_slam_tpu.models.frame import build_frame as ref_build_frame
+
+        cam = Pinhole(**QVGA, k1=0.1, p2=0.002)
+        gray, depth = render(RefWorld(cam=CAM_REF, n_frames=6, n_static=500,
+                                      n_dynamic=0, seed=5), 2)
+        ref = jax.jit(ref_build_frame, static_argnums=(0, 1))(
+            RefPinhole(**QVGA, k1=0.1, p2=0.002), SLICE_CFG, gray, depth)
+        slam = SLAMSystem(cam, cfg, device="cpu", **kw)
+        slam.track_rgbd(gray, depth, 0.0)
+        np.testing.assert_array_equal(np.asarray(ref.valid), slam.map.kf_valid[0].numpy())
+        np.testing.assert_allclose(np.asarray(ref.uv), slam.map.kf_uv[0].numpy(), atol=1e-4)
+        np.testing.assert_array_equal(np.asarray(ref.depth), slam.map.kf_depth[0].numpy())
+        return
     if what == "fix_scale":
         cfg = cfg.replace(loop=config.LoopConfig(fix_scale=False))
-    if what in ("loop", "crf"):
+    if what in ("loop", "crf", "fix_scale"):
         slam = SLAMSystem(cam, cfg, device="cpu", **kw)
         assert slam.enable_loop
         topk, F = cfg.loop.retrieval_topk, cfg.map.max_keyframes
@@ -138,7 +153,5 @@ def test_unported_options_raise(what):
         assert slam.n_verify_loops == 1 and slam.loop_log == []
         assert slam._gba_pending is None and [s for _, s in slam._consistent_groups] == [3]
         return
-    with pytest.raises(NotImplementedError, match={
-            "direct": "descriptor_variant", "distortion": "undistortion",
-            "fix_scale": "fix_scale=False"}[what]):
+    with pytest.raises(NotImplementedError, match="descriptor_variant"):
         SLAMSystem(cam, cfg, device="cpu", **kw)

@@ -1,8 +1,9 @@
 """Shared fixtures for the port's parity tests (tests/test_torch_*.py):
-the small camera and configuration both packages run, rendered frames,
-the reference's own random draws (consensus audit, PnP, Horn RANSAC), a
-hand-built map with a drifted revisit, and the run-and-compare of both
-packages' `track_sequence`."""
+the small camera and configuration both packages run, rendered frames
+(and stereo pairs), the reference's own random draws (consensus audit,
+PnP, Horn RANSAC, the two-view initialisation), a hand-built map with a
+drifted revisit, and the run-and-compare of both packages'
+`track_sequence`."""
 
 import numpy as np
 import torch
@@ -39,6 +40,17 @@ def render(world, k):
     return f.image.astype(np.float32), f.depth_image.astype(np.float32)
 
 
+def render_pair(world, k, cam):
+    """(left, right) images of world frame k: the right eye is the ground
+    truth pose shifted by the baseline bf / fx along camera x (as
+    tests/test_mono_stereo_e2e.py renders it)."""
+    shift = np.eye(4)
+    shift[0, 3] = cam.bf / cam.fx
+    left = world.frame(k, render=True).image
+    right = world.frame(k, render=True, T_wc=world.gt_pose_twc(k) @ shift).image
+    return left.astype(np.float32), right.astype(np.float32)
+
+
 def reference_consensus_sampler(frame_idx: int):
     """A port `Sampler` that makes the reference track_step's own draws
     (tracking.py: fold_in(PRNGKey(17), frame_idx), then pose_consensus's
@@ -70,6 +82,7 @@ def use_reference_draws(port) -> None:
     port._sampler = lambda: reference_consensus_sampler(int(port.ts.frame_idx))
     port._reloc_sampler = lambda: reference_pnp_sampler(next_key(), batched=True)
     port._loop_sampler = lambda: reference_horn_sampler(next_key())
+    port._mono_sampler = lambda: reference_mono_sampler(next_key())
 
 
 def reference_horn_sampler(key):
@@ -78,6 +91,17 @@ def reference_horn_sampler(key):
     def sampler(p: torch.Tensor, n_hyp: int):
         p_j = jnp.asarray(p.detach().cpu().numpy())
         idx = jax.random.choice(key, p_j.shape[0], shape=(n_hyp, 3), p=p_j)
+        return torch.from_numpy(np.asarray(idx).astype(np.int64)).to(p.device)
+
+    return sampler
+
+
+def reference_mono_sampler(key):
+    """A port sampler that makes the reference initialize_mono's draws
+    (`jax.random.choice(key, N, (n_hyp, 8), p=p)`)."""
+    def sampler(p: torch.Tensor, n_hyp: int):
+        p_j = jnp.asarray(p.detach().cpu().numpy())
+        idx = jax.random.choice(key, p_j.shape[0], shape=(n_hyp, 8), p=p_j)
         return torch.from_numpy(np.asarray(idx).astype(np.int64)).to(p.device)
 
     return sampler
@@ -231,17 +255,20 @@ def stack_frames(world, ks):
     return np.stack(grays), np.stack(depths), np.arange(len(ks)) / 30.0
 
 
-def run_sequences(world, ks, chunk, cam_ref=CAM_REF, cam=CAM, cfg=SEQ_CFG):
+def run_sequences(world, ks, chunk, cam_ref=CAM_REF, cam=CAM, cfg=SEQ_CFG,
+                  stereo=False):
     """Both packages' `track_sequence` (mapping and CRF on) over the world
-    frames `ks`: (reference system, port system, reference poses, port
-    poses)."""
+    frames `ks`, with `stereo` the rendered pairs in place of the depth:
+    (reference system, port system, reference poses, port poses)."""
     grays, depths, ts = stack_frames(world, ks)
+    if stereo:
+        depths = np.stack([render_pair(world, k, cam_ref)[1] for k in ks])
     ref = RefSystem(cam_ref, cfg, enable_mapping=True, enable_crf=True)
     port = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
     use_reference_draws(port)
     port.seq_phases = {}
-    poses_ref = ref.track_sequence(grays, depths, ts, chunk=chunk)
-    poses_port = port.track_sequence(grays, depths, ts, chunk=chunk)
+    poses_ref = ref.track_sequence(grays, depths, ts, chunk=chunk, stereo=stereo)
+    poses_port = port.track_sequence(grays, depths, ts, chunk=chunk, stereo=stereo)
     return ref, port, np.asarray(poses_ref), poses_port
 
 
