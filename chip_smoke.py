@@ -12,9 +12,9 @@
      (200x300, not a multiple of the tile; 256x256);
    - `fast_cell_best` (FAST + NMS + best corner per 16-px cell, all levels
      of all frames of a batch in one launch): `best` bitwise, `y` and `x`
-     exact, at B=1 (the 8 levels of a rendered frame), at B=15 (a chunk of
-     rendered frames) and at B=30 (a stereo chunk: 15 left and 15 right
-     eyes).
+     exact, at B=1 (the 8 levels of a rendered frame), B=2 (a stereo pair),
+     B=8 (the command line's chunk), B=15 (a chunk of rendered frames) and
+     B=30 (a stereo chunk: 15 left and 15 right eyes).
 4. Tracking phase: SLAMSystem.track_rgbd with mapping and the CRF off on
    31 rendered 640x480 frames of a 600-point static world, default map
    capacities (32768 points, 320 keyframes, 1024 features). Checks one
@@ -87,7 +87,29 @@
    inside; prints the ms of two calls on the card and one on the CPU,
    each with a synchronize on both sides. (The reference's own mono loop
    world never fires a closure, so the closure is handed in.)
-12. Prints the kernel report as one JSON line (`launches` = the paths'
+12. TUM phase: the tracking world's first 16 frames exported as a TUM
+   RGB-D directory (`SyntheticWorld.export_tum_sequence`), its timestamps
+   shifted to Unix seconds (from 1305031102.175304 s), run through the
+   command line in this process: `run_slam.main(["--seq", DIR, "--device",
+   "cuda", "--log", ..., "--checkpoint", ..., "--timing"])`, then
+   `--throughput --chunk 8` on the same directory, and `--throughput
+   --chunk 8 --profile DIR` over its first 3 frames (a trace of all 16 is
+   ~1.2 GiB). Checks exit 0, 16 frames, 0 lost, ATE < 1 cm (`evaluate_ate`
+   against the exported groundtruth.txt), one JSONL line per record, every
+   keyframe time within 1e-4 s of a frame time, fused launches 16 per
+   frame and 1 + chunks chunked, the profile trace naming the fused
+   kernel; then a
+   system restored from the checkpoint (`load_checkpoint(device="cuda")`)
+   tracks frames 16-19 with none lost. Prints the loader used, the stage
+   table and ms/frame.
+13. Localization phase: tests/test_localization_mode.py's world at
+   640x480 (an orbit over 900 points, seed 5, 40 frames) through
+   `track_rgbd`, default config: frames 0-19 map, 20-33 run in
+   localisation mode with frames 26-27 black, 34-39 map. Checks keyframes,
+   live points and mapping passes unchanged over 20-33, the black frames
+   the only lost ones and tracking back (relocalisation) within 2 frames,
+   ATE < 0.02 m over the other frames, one fused launch a frame.
+14. Prints the kernel report as one JSON line (`launches` = the paths'
    own, the kernel checks' launches apart), the card line again, and
    last `{"ok": true, "device": {...}}`.
 
@@ -97,11 +119,15 @@ device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -126,6 +152,19 @@ MONO_FRAMES = 30
 MONO_INIT_READS = {"mono_wait": 1, "mono_init_fail": 2, "mono_init": 3}
 SIM3_S_CORR = 0.8
 SIM3_TOL = 1e-3           # card vs CPU after correct_loop_sim3: poses, metres
+TUM_FRAMES = 16
+TUM_OFFSET_S = 1305031102.175304   # a TUM sequence's first Unix timestamp
+TUM_CHUNK = 8
+# the profiled chunked run: the first frame and one chunk of 2 (a trace of
+# all 16 frames is ~1.2 GiB, most of a minute to write)
+TUM_PROFILE_FRAMES = 3
+TUM_RESUME_FRAMES = 4
+KF_TIME_TOL_S = 1e-4
+LOC_FRAMES = 40           # tests/test_localization_mode.py's schedule
+LOC_START, LOC_END = 20, 34
+LOC_BLACK = (26, 27)      # black frames inside the localised stretch
+LOC_RECOVER = 2           # frames after the last black one to be tracked again
+LOC_ATE_BAR_M = 0.02      # the reference test's bar
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
@@ -255,14 +294,12 @@ def check_cell_kernel(name, grays, cfg):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def ate_rmse(est_twc: np.ndarray, gt_twc: np.ndarray, with_scale: bool = False) -> float:
-    from lc_crf_slam_torch.geometry.align import umeyama_alignment
+def ate_rmse(ts_est, est_twc, ts_gt, gt_twc, with_scale: bool = False) -> float:
+    """ATE RMSE by the TUM protocol (`utils/evaluate.evaluate_ate`: frames
+    paired by timestamp, Umeyama-aligned)."""
+    from lc_crf_slam_torch.utils.evaluate import evaluate_ate
 
-    src = torch.as_tensor(est_twc[:, :3, 3], dtype=torch.float64)
-    dst = torch.as_tensor(gt_twc[:, :3, 3], dtype=torch.float64)
-    s, R, t = umeyama_alignment(src, dst, with_scale=with_scale)
-    err = torch.linalg.norm(s * (src @ R.T) + t - dst, dim=-1)
-    return float(torch.sqrt(torch.mean(err ** 2)))
+    return evaluate_ate(ts_est, est_twc, ts_gt, gt_twc, with_scale=with_scale).rmse
 
 
 def count_syncs(caught) -> int:
@@ -334,11 +371,11 @@ def tracking_phase(cam, frames, world) -> int:
     frame_ms, syncs, got, peak_mb = drive(slam, frames, (10, 11))
 
     slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
     if poses.shape != (N_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"bad trajectory: shape {poses.shape}")
-    ate = ate_rmse(poses, gt)
+    ate = ate_rmse(ts, poses, gt_t, gt)
     statuses = [s.get("status", 1) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
     inliers = [s["n_inliers"] for s in slam.stats if "n_inliers" in s]
@@ -373,11 +410,11 @@ def dynamic_phase(cam, frames, world):
     frame_ms, syncs, got, peak_mb = drive(slam, frames, range(3, DYN_FRAMES))
 
     slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
     if poses.shape != (DYN_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"dynamic phase: bad trajectory, shape {poses.shape}")
-    ate = ate_rmse(poses, gt[:DYN_FRAMES])
+    ate = ate_rmse(ts, poses, gt_t, gt)
     statuses = [s.get("status", 1) for s in slam.stats]
     is_kf = [bool(s.get("need_kf")) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
@@ -487,13 +524,13 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
     n_seq = DYN_FRAMES - 1      # the first frame goes through track_rgbd
     n_chunks = -(-n_seq // SEQ_CHUNK)
     slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
     if poses.shape != (DYN_FRAMES, 4, 4) or not np.all(np.isfinite(poses)) \
             or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
         raise AssertionError(f"sequence phase: bad trajectory, shapes {poses.shape} "
                              f"{poses_tcw.shape}")
-    ate = ate_rmse(poses, gt[:DYN_FRAMES])
+    ate = ate_rmse(ts, poses, gt_t, gt)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     n_kfs = int(slam.map.n_kfs)
@@ -540,8 +577,7 @@ def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
     """ATE of the keyframes `which` (bool mask) against the ground truth
     at their timestamps."""
     Twc = np.linalg.inv(kf_Tcw[which].astype(np.float64))
-    at = np.abs(kf_time[which][:, None] - gt_times[None, :]).argmin(axis=1)
-    return ate_rmse(Twc, gt_twc[at])
+    return ate_rmse(kf_time[which], Twc, gt_times, gt_twc)
 
 
 def loop_phase(cam) -> int:
@@ -609,7 +645,7 @@ def loop_phase(cam) -> int:
         got = path_launches()
         slices_in_run = slam._gba_slices_run
         slam.flush_stats()
-        _, poses = slam.get_trajectory()        # finishes a pending global BA
+        ts, poses = slam.get_trajectory()       # finishes a pending global BA
     finally:
         for name, fn in originals.items():
             setattr(system, name, fn)
@@ -621,7 +657,7 @@ def loop_phase(cam) -> int:
             or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
         raise AssertionError(f"loop phase: bad trajectory, shapes {poses.shape} "
                              f"{poses_tcw.shape}")
-    ate = ate_rmse(poses, gt)
+    ate = ate_rmse(ts, poses, gt_times, gt)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     m = slam.map
@@ -717,11 +753,11 @@ def stereo_phase(cam) -> int:
         track=lambda f: slam.track_stereo(f.image, rights[round(f.timestamp * 30)],
                                           f.timestamp))
     slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
     if poses.shape != (STEREO_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"stereo phase: bad trajectory, shape {poses.shape}")
-    ate = ate_rmse(poses, gt)
+    ate = ate_rmse(ts, poses, gt_t, gt)
     statuses = [s.get("status", 1) for s in slam.stats]
     is_kf = [bool(s.get("need_kf")) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
@@ -768,13 +804,13 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
     n_seq = len(frames) - 1
     n_chunks = -(-n_seq // SEQ_CHUNK)
     slam.flush_stats()
-    _, poses = slam.get_trajectory()
-    _, gt = world.groundtruth()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
     if poses.shape != (len(frames), 4, 4) or not np.all(np.isfinite(poses)) \
             or poses_tcw.shape != (n_seq, 4, 4) or not np.all(np.isfinite(poses_tcw)):
         raise AssertionError(f"stereo sequence phase: bad trajectory, shapes "
                              f"{poses.shape} {poses_tcw.shape}")
-    ate = ate_rmse(poses, gt[:len(frames)])
+    ate = ate_rmse(ts, poses, gt_t, gt)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     n_kfs = int(slam.map.n_kfs)
@@ -824,14 +860,15 @@ def mono_phase(cam):
     slam.flush_stats()
     events = [s.get("event", "track") for s in slam.stats]
     init_at = events.index("mono_init") if "mono_init" in events else None
-    _, poses = slam.get_trajectory()
+    ts, poses = slam.get_trajectory()
     gt_times, gt = world.groundtruth()
     after = np.asarray([int(r) >= 0 for _, _, r in slam.trajectory])
     n_kfs = int(slam.map.n_kfs)
     n_points = int(slam.map.p_alive.sum())
     statuses = [s.get("status", 1) for s in slam.stats]
     lost_after = statuses[init_at + 1:].count(2) if init_at is not None else None
-    ate = ate_rmse(poses[after], gt[after], with_scale=True) if after.sum() > 2 else None
+    ate = (ate_rmse(ts[after], poses[after], gt_times, gt, with_scale=True)
+           if after.sum() > 2 else None)
     tracked = [k for k in range(MONO_FRAMES) if events[k] == "track"]
     other_at = [k for k in tracked if not slam.stats[k].get("need_kf")]
     before_init = [syncs[k] for k in range(init_at + 1 if init_at is not None else 0)]
@@ -916,6 +953,237 @@ def sim3_closure_stage(slam) -> None:
         raise AssertionError("sim3 closure: the closing keyframe did not move")
 
 
+def shift_sequence(d: str, offset: float) -> None:
+    """Add `offset` seconds to every timestamp of a TUM directory's lists."""
+    from lc_crf_slam_torch.utils.io_tum import read_file_list
+
+    for name in ("rgb.txt", "depth.txt", "groundtruth.txt"):
+        path = os.path.join(d, name)
+        rows = read_file_list(path)
+        with open(path, "w") as fh:
+            fh.writelines(f"{t + offset:.6f} {' '.join(v)}\n" for t, v in rows)
+
+
+def run_cli(argv):
+    """`run_slam.main(argv)` in this process, timed to a synchronize:
+    (exit code, summary dict, its standard error, (fused, map) launches,
+    seconds)."""
+    from lc_crf_slam_torch import run_slam
+    from lc_crf_slam_torch.ops import fast_kernel
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    fast_kernel.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_slam.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return rc, json.loads(out.getvalue().splitlines()[-1]), err.getvalue(), \
+        path_launches(), seconds
+
+
+def tum_phase(cam, world, frames) -> dict:
+    """The command line on a TUM-format sequence (see the module
+    docstring, step 12); returns the fused-kernel launches of its three
+    paths."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.ops import fast_kernel
+    from lc_crf_slam_torch.utils.checkpoint import load_checkpoint
+    from lc_crf_slam_torch.utils.io_tum import (load_groundtruth, poses_from_tum,
+                                                read_file_list, read_trajectory_tum)
+
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tum_")
+    try:
+        d = os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        world.export_tum_sequence(d, n=TUM_FRAMES)
+        shift_sequence(d, TUM_OFFSET_S)
+        print(f"tum: exported {TUM_FRAMES} frames of the tracking world at Unix times "
+              f"from {TUM_OFFSET_S} in {time.perf_counter() - t0:.1f} s")
+        frame_t = np.array([t for t, _ in read_file_list(os.path.join(d, "rgb.txt"))])
+        gt_t, gt_vals = load_groundtruth(os.path.join(d, "groundtruth.txt"))
+        gt = poses_from_tum(gt_vals)
+        out = {k: os.path.join(tmp, k) for k in (
+            "traj.txt", "kf.txt", "run.jsonl", "ck.npz", "traj_tp.txt", "kf_tp.txt",
+            "run_tp.jsonl", "profile")}
+        failures, launches = [], {}
+
+        def check_run(name, summary, traj, kf, log, n_records, got, n_fused):
+            ts, poses = read_trajectory_tum(traj)
+            ate = ate_rmse(ts, poses, gt_t, gt)
+            kf_t, _ = read_trajectory_tum(kf)
+            kf_off = np.abs(kf_t[:, None] - frame_t[None]).min(axis=1).max()
+            records = [json.loads(x) for x in open(log)]
+            print(f"tum {name} [{card}]: summary {summary}; ATE {ate:.5f} m "
+                  f"(evaluate_ate against groundtruth.txt); {len(kf_t)} keyframes, their "
+                  f"times at most {kf_off:.2e} s from a frame time; {len(records)} JSONL "
+                  f"lines; kernel launches (fused, map) {got}")
+            if summary["frames"] != TUM_FRAMES or summary["lost_frames"] != 0:
+                failures.append(f"{name}: frames {summary['frames']}, lost "
+                                f"{summary['lost_frames']}")
+            if not ate < ATE_BAR_M:
+                failures.append(f"{name}: ATE {ate} m >= {ATE_BAR_M} m")
+            if not (len(kf_t) >= 2 and kf_off <= KF_TIME_TOL_S):
+                failures.append(f"{name}: keyframe times up to {kf_off} s off a frame time")
+            if len(records) != n_records:
+                failures.append(f"{name}: {len(records)} JSONL lines, {n_records} records")
+            if got != (n_fused, 0):
+                failures.append(f"{name}: kernel launches (fused, map) {got}, expected "
+                                f"({n_fused}, 0)")
+
+        # per frame, with the log, a checkpoint and the stage table
+        rc, summary, err, got, sec = run_cli([
+            "--seq", d, "--device", "cuda", "--log", out["run.jsonl"], "--checkpoint",
+            out["ck.npz"], "--timing", "--out", out["traj.txt"], "--kf-out", out["kf.txt"]])
+        print(f"tum per frame [{card}]: exit {rc}, {sec:.2f} s for {TUM_FRAMES} frames "
+              f"({sec * 1e3 / TUM_FRAMES:.2f} ms/frame with decoding and exports; the "
+              f"summary's {summary['fps']} fps); stderr:\n{err.rstrip()}")
+        if rc != 0:
+            failures.append(f"per frame: exit {rc}")
+        # one record a frame
+        check_run("per frame", summary, out["traj.txt"], out["kf.txt"], out["run.jsonl"],
+                  TUM_FRAMES, got, TUM_FRAMES)
+        launches["tum"] = got[0]
+
+        # chunked
+        rc, summary, err, got, sec = run_cli([
+            "--seq", d, "--device", "cuda", "--throughput", "--chunk", str(TUM_CHUNK),
+            "--log", out["run_tp.jsonl"], "--out", out["traj_tp.txt"],
+            "--kf-out", out["kf_tp.txt"]])
+        n_chunks = -(-(TUM_FRAMES - 1) // TUM_CHUNK)
+        print(f"tum chunked [{card}]: exit {rc}, {sec:.2f} s for {TUM_FRAMES} frames in "
+              f"1 + {n_chunks} chunks of {TUM_CHUNK} ({sec * 1e3 / TUM_FRAMES:.2f} "
+              f"ms/frame with decoding and exports); stderr:\n{err.rstrip()}")
+        if rc != 0:
+            failures.append(f"chunked: exit {rc}")
+        # the first frame's record, and a record for each chunk event
+        check_run("chunked", summary, out["traj_tp.txt"], out["kf_tp.txt"],
+                  out["run_tp.jsonl"], 1, got, 1 + n_chunks)
+        launches["tum_throughput"] = got[0]
+
+        # chunked under torch.profiler: the trace must name the fused kernel
+        rc, summary, err, got, sec = run_cli([
+            "--seq", d, "--device", "cuda", "--throughput", "--chunk", str(TUM_CHUNK),
+            "--max-frames", str(TUM_PROFILE_FRAMES), "--profile", out["profile"],
+            "--out", out["traj_tp.txt"], "--kf-out", out["kf_tp.txt"]])
+        trace_path = os.path.join(out["profile"], "trace.json")
+        trace_mb = os.path.getsize(trace_path) / 2**20
+        with open(trace_path) as fh:
+            named = "fast_cell_best_kernel" in fh.read()
+        print(f"tum profiled [{card}]: exit {rc}, {sec:.2f} s for {summary['frames']} "
+              f"frames (the first and one chunk) under torch.profiler, trace "
+              f"{trace_mb:.1f} MiB naming fast_cell_best_kernel: {named}, kernel "
+              f"launches (fused, map) {got}")
+        if rc != 0 or summary["frames"] != TUM_PROFILE_FRAMES or not named \
+                or got != (2, 0):
+            failures.append(f"profiled: exit {rc}, {summary['frames']} frames, kernel "
+                            f"named {named}, launches {got}")
+        launches["tum_profiled"] = got[0]
+
+        # resumed from the per-frame run's checkpoint: 4 more frames
+        slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
+        m, ts, meta = load_checkpoint(out["ck.npz"], device="cuda")
+        slam.restore(m, ts, meta["trajectory"], meta["kf_log"])
+        more = frames[TUM_FRAMES:TUM_FRAMES + TUM_RESUME_FRAMES]
+        torch.cuda.synchronize()
+        fast_kernel.reset_launches()
+        t0 = time.perf_counter()
+        for f in more:
+            slam.track_rgbd(f.image, f.depth_image, TUM_OFFSET_S + f.timestamp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(more)
+        got = path_launches()
+        slam.flush_stats()
+        ts_all, poses = slam.get_trajectory()
+        w_t, w_gt = world.groundtruth()
+        ate = ate_rmse(ts_all, poses, w_t + TUM_OFFSET_S, w_gt)
+        statuses = [s.get("status") for s in slam.stats]
+        print(f"tum resume [{card}]: checkpoint of {len(meta['trajectory'])} frames on "
+              f"{m.p_xyz.device}, {len(more)} more frames at {ms:.2f} ms/frame, statuses "
+              f"{statuses}, ATE over all {len(ts_all)} frames {ate:.5f} m, kernel launches "
+              f"(fused, map) {got}")
+        if statuses != [1] * len(more) or len(ts_all) != TUM_FRAMES + len(more):
+            failures.append(f"resume: statuses {statuses}, {len(ts_all)} frames")
+        if not ate < ATE_BAR_M:
+            failures.append(f"resume: ATE {ate} m >= {ATE_BAR_M} m")
+        if got != (len(more), 0):
+            failures.append(f"resume: kernel launches (fused, map) {got}")
+        launches["tum_resume"] = got[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("tum phase: " + "; ".join(failures))
+    return launches
+
+
+def localization_phase(cam) -> int:
+    """Localisation mode and relocalisation at full width (see the module
+    docstring, step 13); returns the path's fused-kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.ops import fast_kernel
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    card = card_line()
+    world = SyntheticWorld(cam=cam, n_frames=LOC_FRAMES, n_static=900, n_dynamic=0,
+                           seed=5, trajectory="orbit", pixel_noise=0.0, depth_noise=0.0)
+    frames = [world.frame(k, render=True) for k in range(LOC_FRAMES)]
+    slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
+    seen, frame_ms = [], []
+    torch.cuda.synchronize()
+    fast_kernel.reset_launches()
+    for k, f in enumerate(frames):
+        slam.set_localization_mode(LOC_START <= k < LOC_END)
+        img, depth = f.image, f.depth_image
+        if k in LOC_BLACK:
+            img, depth = np.zeros_like(img), np.zeros_like(depth)
+        t0 = time.perf_counter()
+        slam.track_rgbd(img, depth, f.timestamp)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.append((int(slam.map.n_kfs), int(slam.map.p_alive.sum()), slam.n_mapping_steps))
+    got = path_launches()
+    slam.flush_stats()
+    statuses = [s.get("status", 1) for s in slam.stats]
+    lost = [k for k, st in enumerate(statuses) if st != 1]
+    back = next((k for k in range(LOC_BLACK[-1] + 1, LOC_FRAMES) if statuses[k] == 1), None)
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
+    keep = np.array([k not in LOC_BLACK for k in range(LOC_FRAMES)])
+    ate = ate_rmse(ts[keep], poses[keep], gt_t, gt)
+    loc = [k for k in range(LOC_START, LOC_END) if k not in LOC_BLACK]
+    mapped = [k for k in range(LOC_FRAMES) if k < LOC_START or k >= LOC_END]
+    print(f"localization [{card}]: frames 0-{LOC_START - 1} map, {LOC_START}-{LOC_END - 1} "
+          f"localise (black frames {list(LOC_BLACK)}), {LOC_END}-{LOC_FRAMES - 1} map; "
+          f"keyframes / live points / mapping passes at frame {LOC_START - 1} "
+          f"{seen[LOC_START - 1]}, at {LOC_END - 1} {seen[LOC_END - 1]}, at the end "
+          f"{seen[-1]}; lost frames {lost}, tracked again on frame {back}; ms of the "
+          f"black frames and the next two {[round(frame_ms[k], 1) for k in (*LOC_BLACK, LOC_BLACK[-1] + 1, LOC_BLACK[-1] + 2)]}; "
+          f"median ms/frame localising {statistics.median(frame_ms[k] for k in loc):.2f}, "
+          f"mapping {statistics.median(frame_ms[k] for k in mapped[3:]):.2f}; ATE over "
+          f"the {int(keep.sum())} non-black frames {ate:.5f} m; kernel launches "
+          f"(fused, map) {got}")
+    failures = []
+    if any(seen[k] != seen[LOC_START - 1] for k in range(LOC_START, LOC_END)):
+        failures.append(f"the map changed in localisation mode: "
+                        f"{[seen[k] for k in range(LOC_START - 1, LOC_END)]}")
+    if seen[LOC_START - 1][0] < 2 or seen[-1][0] < seen[LOC_END - 1][0]:
+        failures.append(f"keyframes {seen[LOC_START - 1][0]} before, {seen[-1][0]} at the end")
+    if any(k not in LOC_BLACK for k in lost) or back is None \
+            or back > LOC_BLACK[-1] + LOC_RECOVER:
+        failures.append(f"lost frames {lost}, tracked again on frame {back}")
+    if not ate < LOC_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {LOC_ATE_BAR_M} m")
+    if got != (LOC_FRAMES, 0):
+        failures.append(f"kernel launches (fused, map) {got}, expected ({LOC_FRAMES}, 0)")
+    if failures:
+        raise AssertionError("localization phase: " + "; ".join(failures))
+    return got[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -968,9 +1236,11 @@ def main() -> int:
         np.stack([f.image for f in dyn_frames[1:1 + SEQ_CHUNK]]).astype(np.float32),
         device=dev)
     cells_b1 = check_cell_kernel("one frame", chunk_grays[:1], cfg)
+    cells_b8 = check_cell_kernel("a chunk of 8", chunk_grays[:TUM_CHUNK], cfg)
     cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
     stereo_grays = torch.cat([chunk_grays, torch.as_tensor(
         np.stack(dyn_rights[1:1 + SEQ_CHUNK]).astype(np.float32), device=dev)])
+    cells_b2 = check_cell_kernel("a stereo pair", stereo_grays[::SEQ_CHUNK], cfg)
     cells_b30 = check_cell_kernel("one stereo chunk", stereo_grays, cfg)
 
     # ---- the phases at full width -------------------------------------------
@@ -983,6 +1253,8 @@ def main() -> int:
                                                        dyn_world, seq_ms)
     by_path["mono"], mono = mono_phase(cam)
     sim3_closure_stage(mono)
+    by_path.update(tum_phase(cam, world, frames))
+    by_path["localization"] = localization_phase(cam)
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the fused kernel: {by_path}")
 
@@ -1000,7 +1272,8 @@ def main() -> int:
         # the kernel checks above is among them)
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(c["max_abs_err"] for c in (cells_b1, cells_b15, cells_b30)),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in (cells_b1, cells_b2, cells_b8, cells_b15, cells_b30)),
         # one launch for a chunk of 15 frames (the throughput path's shape)
         "ms": cells_b15["ms"],
         "plain_ms": cells_b15["plain_ms"],
@@ -1010,6 +1283,12 @@ def main() -> int:
         # one launch for one frame (the per-frame path's shape)
         "one_frame": {k: cells_b1[k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by")},
+        # one launch for a stereo pair (track_stereo's shape)
+        "stereo_pair": {k: cells_b2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err")},
+        # one launch for a chunk of 8 (run_slam --throughput's default chunk)
+        "chunk_of_8": {k: cells_b8[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")},
         # one launch for a stereo chunk: 15 left and 15 right eyes
         "stereo_chunk": {k: cells_b30[k] for k in ("ms", "plain_ms", "bound_ms",
                                                     "bound_by", "max_abs_err")},

@@ -13,6 +13,9 @@ Layout mirrors the reference:
   models/    frame front-end, map state, motion-only BA, tracking, mapping,
              CRF, loop closing (SE3 and Sim3), two-view initialisation,
              SLAMSystem
-  utils/     synthetic RGB-D worlds, TUM trajectory output
+  utils/     synthetic RGB-D worlds, TUM sequences and trajectories (PNG on
+             numpy + zlib, the native prefetching loader), ATE/RPE,
+             checkpoints, the stage timer and profiler trace, map plots
+  run_slam   the command line (`python -m lc_crf_slam_torch.run_slam`)
   csrc/      CUDA C++ kernel sources; kernels/ builds and loads them
 """

@@ -335,3 +335,46 @@ class SLAMConfig:
 
     def replace(self, **kwargs) -> "SLAMConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+def tum_config(preset: int = 3, **overrides):
+    """(SLAMConfig, Pinhole) for a TUM RGB-D sequence family (fr1/fr2/fr3).
+    The three TUM*.yaml settings files differ only in the camera, so the
+    preset selects the camera model; `overrides` patch the config's
+    sections."""
+    from .geometry.camera import TUM1, TUM2, TUM3
+
+    try:
+        cam = {1: TUM1, 2: TUM2, 3: TUM3}[preset]
+    except KeyError:
+        raise ValueError(f"unknown TUM preset {preset!r}; expected 1/2/3")
+    return SLAMConfig(**overrides), cam
+
+
+def load_yaml(path: str) -> SLAMConfig:
+    """A config from a flat `section.key: value` file (configs/*.yaml);
+    sections are the field names above. Values are Python literals read
+    with `ast.literal_eval` (numbers, booleans, strings); anything else
+    stays the raw string, as in the reference."""
+    import ast
+    import re
+
+    cfg = SLAMConfig()
+    sections = {f.name: {} for f in dataclasses.fields(cfg)}
+    with open(path) as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            m = re.match(r"([\w.]+)\s*:\s*(.+)", line)
+            if not m or "." not in m.group(1):
+                continue
+            sec, name = m.group(1).split(".", 1)
+            if sec in sections:
+                val = m.group(2).strip()
+                try:
+                    sections[sec][name] = ast.literal_eval(val)
+                except (ValueError, SyntaxError):
+                    sections[sec][name] = val
+    return SLAMConfig(**{
+        f.name: (dataclasses.replace(getattr(cfg, f.name), **sections[f.name])
+                 if sections[f.name] else getattr(cfg, f.name))
+        for f in dataclasses.fields(cfg)})

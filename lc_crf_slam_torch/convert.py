@@ -41,7 +41,10 @@ def _convert(state, cls, device):
 
 
 def map_to_torch(m, device: str | torch.device = "cpu") -> MapState:
-    return _convert(m, MapState, device)
+    """A reference map in the port's dtypes: as the reference's, but
+    `kf_time` float64 (the reference keeps float32 seconds)."""
+    out = _convert(m, MapState, device)
+    return out._replace(kf_time=out.kf_time.to(torch.float64))
 
 
 def track_to_torch(ts, device: str | torch.device = "cpu") -> TrackState:

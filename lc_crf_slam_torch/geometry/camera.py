@@ -77,3 +77,7 @@ TUM2 = Pinhole(fx=520.908620, fy=521.007327, cx=325.141442, cy=249.701764,
                k1=0.231222, k2=-0.784899, p1=-0.003257, p2=-0.000105, k3=0.917205)
 TUM3 = Pinhole(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
                width=640, height=480, bf=40.0)
+# Bonn RGB-D Dynamic dataset: Asus Xtion Pro Live, rectified 640x480, the
+# TUM file layout and depth factor 5000 (the reference's intrinsics).
+BONN = Pinhole(fx=542.822841, fy=542.576870, cx=315.593520, cy=237.756098,
+               width=640, height=480, bf=40.0)

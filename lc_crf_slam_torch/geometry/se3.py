@@ -95,6 +95,18 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return torch.where(q[..., 3:4] < 0, -q, q)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) as (qx, qy, qz, qw) [TUM order] -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
 def log_so3(R: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation -> (..., 3) axis-angle, via the quaternion."""
     q = rotmat_to_quat(R)

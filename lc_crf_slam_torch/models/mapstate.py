@@ -41,7 +41,7 @@ class MapState(NamedTuple):
     p_alive: torch.Tensor      # (P,) bool
     # --- keyframes (capacity F, features K) ---
     kf_Tcw: torch.Tensor       # (F, 4, 4)
-    kf_time: torch.Tensor      # (F,)
+    kf_time: torch.Tensor      # (F,) float64 seconds (the reference: float32)
     kf_alive: torch.Tensor     # (F,) bool
     kf_uv: torch.Tensor        # (F, K, 2)
     kf_ur: torch.Tensor        # (F, K) virtual right coord (-1 = mono)
@@ -96,7 +96,7 @@ def empty_map(cfg: SLAMConfig, device: torch.device) -> MapState:
         p_last_seen=full((P,), 0, i32),
         p_alive=full((P,), False, torch.bool),
         kf_Tcw=eye.repeat(F, 1, 1),
-        kf_time=full((F,), 0.0, f32),
+        kf_time=full((F,), 0.0, torch.float64),
         kf_alive=full((F,), False, torch.bool),
         kf_uv=full((F, K, 2), 0.0, f32),
         kf_ur=full((F, K), -1.0, f32),
@@ -201,7 +201,7 @@ def add_points(
     m = m._replace(
         tomb_xyz=scatter_set(m.tomb_xyz, t_pos, m.p_xyz),
         tomb_valid=scatter_set(m.tomb_valid, t_pos, True),
-        tomb_n=m.tomb_n + torch.sum(was_veto.to(torch.int32)),
+        tomb_n=m.tomb_n + torch.sum(was_veto, dtype=torch.int32),
     )
     m = m._replace(
         p_xyz=scatter_set(m.p_xyz, tgt, xyz),

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -71,6 +72,7 @@ from ..ops.pnp import uniform_sampler
 from ..ops.ransac import multinomial_sampler
 from ..ops.stereo import stereo_match
 from ..utils.io_tum import write_trajectory_tum
+from ..utils.profiling import StageTimer
 from .ba import draw_consensus
 from .crf import crf_step
 from .frame import Frame, build_frame, build_frames, frame_from_observations
@@ -188,6 +190,12 @@ class SLAMSystem:
 
     `device` defaults to CUDA and raises if no card is present; the CPU
     runs only when asked for (`device="cpu"`), as the tests do.
+    `log_path` names a JSONL file: `flush_stats` writes each record not yet
+    written as one `json.dumps` line, `shutdown` closes it. `timer` times
+    the per-frame stages on the host clock (frontend, track, insert_kf,
+    mapping, global_ba_slice); on the card that is the dispatch, not the
+    device work (`utils/profiling.py`). Keyframe times are float64: the
+    reference's float32 is 128 s apart at Unix times near 1.3e9.
     `n_mapping_steps`, `n_crf_steps`, `n_detect_loops` and `n_verify_loops`
     count the stage calls; `loop_log` lists the closed loops. Set
     `seq_phases` to a dict and `track_sequence` adds the host seconds of
@@ -197,7 +205,7 @@ class SLAMSystem:
     """
 
     def __init__(self, cam: Pinhole, cfg: Optional[SLAMConfig] = None,
-                 enable_mapping: bool = True,
+                 log_path: Optional[str] = None, enable_mapping: bool = True,
                  enable_crf: Optional[bool] = None,
                  device: str | torch.device = "cuda"):
         self.cam = cam
@@ -219,10 +227,17 @@ class SLAMSystem:
             torch.backends.cudnn.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
         self._gen = torch.Generator(device=self.device)
+        self.timer = StageTimer()
+        self._log_fh = None
         self.reset()
+        self._log_fh = open(log_path, "w") if log_path else None
 
     def reset(self) -> None:
-        """System::Reset — clear the map and tracking state."""
+        """System::Reset — clear the map and tracking state (and the
+        records, after writing those not yet logged); localisation mode
+        is off again."""
+        if self._log_fh is not None:
+            self.flush_stats()
         self.map: MapState = empty_map(self.cfg, self.device)
         self.ts: TrackState = empty_track_state(self.cfg, self.device)
         self.initialized = False
@@ -231,6 +246,8 @@ class SLAMSystem:
         self.trajectory: List[tuple] = []
         self.kf_log: List[tuple] = []        # (t, kf index)
         self.stats: List[dict] = []
+        self._n_logged = 0                   # records written to the log
+        self._localization_only = False
         self._n_frames = 0
         self._capacity_warned = False
         self._last_gray: Optional[torch.Tensor] = None
@@ -268,7 +285,8 @@ class SLAMSystem:
         metres, numpy or tensor); returns Tcw (4, 4) on the device."""
         self._set_sensor("rgbd")
         gray, depth = self._upload(gray), self._upload(depth)
-        frame = build_frame(self.cam, self.cfg, gray, depth)
+        with self.timer.stage("frontend"):
+            frame = build_frame(self.cam, self.cfg, gray, depth)
         return self._track_frame(frame, timestamp, gray)
 
     def track_stereo(self, gray_left, gray_right, timestamp: float) -> torch.Tensor:
@@ -368,8 +386,8 @@ class SLAMSystem:
             self.map, res.xyz, ref.desc, normal, min_d, max_d, res.ok,
             torch.zeros((), **i32), tomb_dyn_threshold=cfg.crf.dynamic_threshold,
             n_obs_init=0)       # both add_keyframe calls below count
-        f32 = dict(dtype=torch.float32, device=dev)
-        self.map, _ = add_keyframe(self.map, ref, eye, torch.full((), t_ref, **f32), ids)
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.map, _ = add_keyframe(self.map, ref, eye, torch.full((), t_ref, **f64), ids)
         # cur_obs[mm.idx] = ids where ok; every other row writes -1 into
         # slot K - 1, and the last write to a slot wins (XLA's CPU scatter)
         tgt = torch.where(res.ok, mm.idx, K - 1)
@@ -379,12 +397,12 @@ class SLAMSystem:
         vals = torch.where(res.ok, ids, -1)
         cur_obs = torch.where(last >= 0, vals[torch.clamp(last, min=0)], -1).to(torch.int32)
         self.map, kf1 = add_keyframe(self.map, frame, res.Tcw2,
-                                     torch.full((), timestamp, **f32), cur_obs)
+                                     torch.full((), timestamp, **f64), cur_obs)
         self.ts = empty_track_state(cfg, dev)._replace(
             Tcw=res.Tcw2, last_uv=frame.uv, last_ur=frame.u_right,
             last_depth=frame.depth, last_level=frame.level, last_angle=frame.angle,
             last_desc=frame.desc, last_valid=frame.valid, last_obs=cur_obs,
-            ref_kf=kf1, ref_matches=torch.sum((cur_obs >= 0).to(torch.int32)),
+            ref_kf=kf1, ref_matches=torch.sum(cur_obs >= 0, dtype=torch.int32),
             status=torch.ones((), **i32))
         self.initialized = True
         self._mono_ref = None
@@ -395,10 +413,10 @@ class SLAMSystem:
         self._last_gray = gray
         return res.Tcw2
 
-    def _upload(self, img) -> torch.Tensor:
-        """Host image -> contiguous float32 on the device; from pinned
+    def _upload(self, img, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Host array -> contiguous `dtype` on the device; from pinned
         memory and asynchronous, so the upload does not stall the host."""
-        t = torch.as_tensor(img, dtype=torch.float32).contiguous()
+        t = torch.as_tensor(img, dtype=dtype).contiguous()
         if self.device.type == "cuda" and t.device.type == "cpu":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -434,7 +452,7 @@ class SLAMSystem:
                      gray: Optional[torch.Tensor] = None) -> torch.Tensor:
         t0 = time.perf_counter()
         cfg, cam = self.cfg, self.cam
-        t_dev = torch.full((), timestamp, dtype=torch.float32, device=self.device)
+        t_dev = torch.full((), timestamp, dtype=torch.float64, device=self.device)
         prev_gray = self._last_gray
         prev_uv, prev_obs, prev_valid = self.ts.last_uv, self.ts.last_obs, self.ts.last_valid
         dev_stats = None
@@ -443,12 +461,14 @@ class SLAMSystem:
             self.initialized = True
             info_host = {"event": "init"}
         else:
-            self.ts, self.map, info = track_step(
-                cfg, cam, self.map, self.ts, frame, self._sampler())
+            with self.timer.stage("track"):
+                self.ts, self.map, info = track_step(
+                    cfg, cam, self.map, self.ts, frame, self._sampler())
             # the one device->host read of the frame: the control scalars
             need_kf, status, n_kfs = torch.stack(
                 [info.need_kf.to(torch.int32), self.ts.status,
                  self.map.n_kfs]).tolist()
+            need_kf = need_kf and not self._localization_only
             if status == 2 and n_kfs >= 2:
                 # Tracking::Relocalization (a rare path: it reads the device)
                 rr = relocalize(cfg, cam, self.map, frame, self._reloc_sampler())
@@ -464,11 +484,13 @@ class SLAMSystem:
                     flow_dyn = spawn_flow_dyn(cfg, cam, gray, prev_gray, frame.uv,
                                               frame.depth, frame.valid, self.ts.Tcw,
                                               self._last_Tcw)
-                self.map, self.ts = insert_keyframe(
-                    cfg, cam, self.map, self.ts, frame, info.obs, t_dev,
-                    info.near_map, flow_dyn)
+                with self.timer.stage("insert_kf"):
+                    self.map, self.ts = insert_keyframe(
+                        cfg, cam, self.map, self.ts, frame, info.obs, t_dev,
+                        info.near_map, flow_dyn)
                 if self.enable_mapping:
-                    self.map = mapping_step(cfg, cam, self.map, self.ts.ref_kf)
+                    with self.timer.stage("mapping"):
+                        self.map = mapping_step(cfg, cam, self.map, self.ts.ref_kf)
                     self.n_mapping_steps += 1
                 self.kf_log.append((timestamp, self.ts.ref_kf))
                 self._warn_if_at_capacity()
@@ -585,7 +607,7 @@ class SLAMSystem:
             flow = lk_track_batch(prev_grays, g, prev_uvs, [ones] * take,
                                   n_levels=cfg.crf.flow_levels)
         clock.lap("lk")
-        t_dev = self._upload(timestamps)
+        t_dev = self._upload(timestamps, torch.float64)
         spawn_gate = self.enable_crf and cfg.crf.spawn_flow_gate > 0
 
         Tcw_seq, Tcr_seq, ref_seq, status_seq = [], [], [], []
@@ -597,7 +619,7 @@ class SLAMSystem:
             ts, m, info = track_step(cfg, cam, self.map, self.ts, fr, self._sampler())
             # the frame's one device->host read: the reference branches on
             # the device (lax.cond), eager PyTorch on the host
-            kf_here = bool(info.need_kf)
+            kf_here = bool(info.need_kf) and not self._localization_only
             if kf_here:
                 flow_dyn = None
                 if spawn_gate:
@@ -772,7 +794,8 @@ class SLAMSystem:
             slice_iters = self.cfg.loop.gba_slice_iters
             if slice_iters <= 0 or drain:
                 slice_iters = max(self.cfg.loop.gba_total_iters, 1)
-            self.map = global_ba(self.cfg, self.cam, self.map, slice_iters)
+            with self.timer.stage("global_ba_slice"):
+                self.map = global_ba(self.cfg, self.cam, self.map, slice_iters)
             self._gba_slices_run += 1
             self._gba_pending["left"] -= slice_iters
             if self._gba_pending["left"] <= 0:
@@ -785,7 +808,8 @@ class SLAMSystem:
                 break
 
     def flush_stats(self) -> None:
-        """Resolve the deferred per-frame device stats and keyframe ids."""
+        """Resolve the deferred per-frame device stats and keyframe ids,
+        and write the records not yet logged to the JSONL log."""
         if any(isinstance(k, torch.Tensor) for _, k in self.kf_log):
             self.kf_log = [(t, int(k)) for t, k in self.kf_log]
         pending = [r for r in self.stats if "_dev" in r]
@@ -794,6 +818,10 @@ class SLAMSystem:
             for r, row in zip(pending, vals):
                 for key, v in zip(self._DEV_STAT_KEYS, row):
                     r[key] = bool(v) if key in ("rescued", "ref_fallback") else int(v)
+        if self._log_fh is not None:
+            for r in self.stats[self._n_logged:]:
+                self._log_fh.write(json.dumps(r) + "\n")
+            self._n_logged = len(self.stats)
 
     def _warn_if_at_capacity(self) -> None:
         """Say once, loudly, when the keyframe or live-point capacity is
@@ -861,7 +889,32 @@ class SLAMSystem:
         times = self.map.kf_time[:n].cpu().numpy()[alive]
         write_trajectory_tum(path, times, Twc)
 
+    def restore(self, m: MapState, ts: TrackState, trajectory: Sequence = (),
+                kf_log: Sequence = ()) -> None:
+        """Continue from a checkpoint (`utils/checkpoint.load_checkpoint`):
+        its map, tracking state and per-frame records. The frame count,
+        which seeds each frame's draws, is the trajectory's length, so a
+        resumed run draws as the uninterrupted one; the previous image is
+        not in a checkpoint, so the first resumed frame runs no flow
+        evidence."""
+        self.map, self.ts = m, ts
+        self.initialized = True
+        self.trajectory, self.kf_log = list(trajectory), list(kf_log)
+        self._n_frames = len(self.trajectory)
+
+    def set_localization_mode(self, enabled: bool) -> None:
+        """System::ActivateLocalizationMode / DeactivateLocalizationMode:
+        while enabled, frames track against the frozen map: no keyframe
+        insertion, so no mapping pass and no loop closing, and the map's
+        keyframes and live points cannot change. Point statistics and CRF
+        labels still update, as in the reference."""
+        self._localization_only = enabled
+
     def shutdown(self) -> None:
-        """Finish a pending global BA and resolve the deferred stats."""
+        """Finish a pending global BA, resolve the deferred stats, write
+        them to the log and close it."""
         self._pump_gba(drain=True)
         self.flush_stats()
+        if self._log_fh is not None:
+            self._log_fh.close()
+            self._log_fh = None

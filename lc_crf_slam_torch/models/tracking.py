@@ -154,7 +154,7 @@ def initialize_map(cfg: SLAMConfig, cam: Pinhole, m: MapState, frame: Frame,
         last_level=frame.level, last_angle=frame.angle, last_desc=frame.desc,
         last_valid=frame.valid, last_obs=ids,
         ref_kf=kf_idx,
-        ref_matches=torch.sum((ids >= 0).to(torch.int32)),
+        ref_matches=torch.sum(ids >= 0, dtype=torch.int32),
         status=torch.ones((), dtype=torch.int32, device=dev),
     )
     return m, ts
@@ -487,7 +487,7 @@ def insert_keyframe(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
     n_obs_pts = m.p_n_obs[_ids(obs_all)]
     ts = ts._replace(
         ref_kf=kf_idx,
-        ref_matches=torch.sum(((obs_all >= 0) & (n_obs_pts >= min_obs)).to(torch.int32)),
+        ref_matches=torch.sum((obs_all >= 0) & (n_obs_pts >= min_obs), dtype=torch.int32),
         n_since_kf=torch.zeros((), dtype=torch.int32, device=dev),
         last_obs=obs_all,
     )

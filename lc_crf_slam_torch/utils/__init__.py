@@ -1,1 +1,1 @@
-"""Synthetic RGB-D worlds and TUM trajectory output."""
+"""Synthetic worlds, TUM I/O, evaluation, checkpoints, profiling, plots."""

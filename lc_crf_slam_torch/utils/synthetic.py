@@ -2,9 +2,10 @@
 
 A numpy-only copy of lc_crf_slam_tpu/utils/synthetic.py (which the port
 cannot import: the reference's geometry package imports jax). It differs
-only in importing the port's `Pinhole` and in leaving out
-`export_tum_sequence` (it needs jax and cv2); rendered images and depth
-are bit-identical to the reference's (tests/test_torch_synthetic.py).
+only in importing the port's `Pinhole` and in writing the PNGs of
+`export_tum_sequence` with `utils/png.py` (the reference uses cv2);
+rendered images and depth are bit-identical to the reference's
+(tests/test_torch_synthetic.py).
 
 The reference had no tests (SURVEY.md §5); its de-facto test was running
 TUM sequences. With no dataset in this environment, this module is the
@@ -530,6 +531,48 @@ class SyntheticWorld:
             & (xyz[:, 1] > lo[1] - h / 2 - margin)
             & (xyz[:, 1] < hi[1] + h / 2 + margin)
         )
+
+    def export_tum_sequence(self, out_dir: str, n: Optional[int] = None,
+                            depth_factor: float = 5000.0) -> None:
+        """Write this world as a TUM RGB-D sequence directory (rgb/,
+        depth/, rgb.txt, depth.txt, groundtruth.txt), so the dataset path
+        (association, PNG decoding, the CLI) runs without the real data.
+        Images are the gray rendering replicated to 8-bit RGB, depth
+        16-bit at `depth_factor` counts per metre."""
+        import os
+
+        import torch
+
+        from ..geometry.se3 import rotmat_to_quat
+        from . import png
+
+        n = n or self.n_frames
+        os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+        os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+        rgb_lines, depth_lines, gt_lines = [], [], []
+        for k in range(n):
+            f = self.frame(k, render=True)
+            t = f.timestamp
+            rgb_rel = f"rgb/{t:.6f}.png"
+            dep_rel = f"depth/{t:.6f}.png"
+            img8 = np.clip(f.image, 0, 255).astype(np.uint8)
+            png.imwrite(os.path.join(out_dir, rgb_rel), np.stack([img8] * 3, axis=-1))
+            d16 = np.clip(f.depth_image * depth_factor, 0, 65535).astype(np.uint16)
+            png.imwrite(os.path.join(out_dir, dep_rel), d16)
+            rgb_lines.append(f"{t:.6f} {rgb_rel}")
+            depth_lines.append(f"{t:.6f} {dep_rel}")
+            Twc = self.gt_pose_twc(k)
+            q = rotmat_to_quat(torch.as_tensor(Twc[:3, :3], dtype=torch.float32)).numpy()
+            tx, ty, tz = Twc[:3, 3]
+            gt_lines.append(
+                f"{t:.6f} {tx:.6f} {ty:.6f} {tz:.6f} "
+                f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}"
+            )
+        for name, lines in (("rgb.txt", rgb_lines), ("depth.txt", depth_lines),
+                            ("groundtruth.txt", gt_lines)):
+            with open(os.path.join(out_dir, name), "w") as fh:
+                fh.write("# synthetic TUM export\n")
+                fh.write("\n".join(lines) + "\n")
 
     def groundtruth(self):
         ts = np.array([k / 30.0 for k in range(self.n_frames)])

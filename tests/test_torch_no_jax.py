@@ -10,7 +10,9 @@ fuse) and a fourth closes the same loop over Sim(3) (`fix_scale=False`:
 correct_loop_sim3), a stereo system runs `track_stereo` and
 `track_sequence_stereo` (ops/stereo.py), a monocular one
 `track_monocular` and `track_observations_mono` (models/initializer.py),
-and nothing of the JAX package (lc_crf_slam_tpu) was imported. (A
+the command line (`run_slam.main`) runs a synthetic sequence on the CPU
+with its log, map plot and checkpoint, and nothing of the JAX package
+(lc_crf_slam_tpu) was imported. (A
 subprocess, because conftest.py has already imported jax into this
 one.)"""
 
@@ -154,6 +156,23 @@ for k in range(12):
     obs.track_observations_mono(f.uv, f.desc, f.timestamp)
 events = [s.get("event") for s in obs.stats]
 assert "mono_init" in events and obs.initialized, events
+# the command line: a synthetic run with every output, in a scratch directory
+import json, os, tempfile
+from lc_crf_slam_torch import run_slam
+with tempfile.TemporaryDirectory() as tmp:
+    with open(os.path.join(tmp, "small.yaml"), "w") as fh:
+        fh.write("orb.max_keypoints: 512\nmap.max_points: 4096\nmap.max_features: 512\n")
+    out = lambda name: os.path.join(tmp, name)
+    import contextlib, io
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        assert run_slam.main(["--synthetic", "--frames", "4", "--device", "cpu",
+                              "--config", out("small.yaml"), "--out", out("t.txt"),
+                              "--kf-out", out("kf.txt"), "--log", out("run.jsonl"),
+                              "--viz", out("map.png"), "--checkpoint", out("ck.npz")]) == 0
+    assert json.loads(printed.getvalue().splitlines()[-1])["frames"] == 4
+    assert all(os.path.exists(out(n)) for n in ("t.txt", "kf.txt", "map.png", "ck.npz"))
+    assert len(open(out("run.jsonl")).read().splitlines()) == 4
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")
