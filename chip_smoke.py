@@ -109,7 +109,33 @@
    live points and mapping passes unchanged over 20-33, the black frames
    the only lost ones and tracking back (relocalisation) within 2 frames,
    ATE < 0.02 m over the other frames, one fused launch a frame.
-14. Prints the kernel report as one JSON line (`launches` = the paths'
+14. Direct-descriptor stage: the tracking phase's first 8 frames through
+   `track_rgbd` with `orb.descriptor_variant="direct"` (the reference's
+   computeOrbDescriptor semantics). Checks one fused launch a frame, no
+   lost frame, ATE < 1 cm; prints the ATE.
+15. Distributed phase (lc_crf_slam_torch/parallel/), default config:
+   (a) `init_distributed` joins a world of one NCCL rank on the card, and
+   the "edge" mesh is that rank;
+   (b) the sequence phase's frames through `SLAMSystem(mesh=...)` with a
+   "frames" mesh of two shards (the card listed twice, or every visible
+   card when there are two or more), chunk 15: each shard builds its
+   frames (one fused launch a shard) and runs its forward flow; beside
+   it the same frames with `mesh=None`, both with torch's deterministic
+   algorithms (local BA's float atomics make two runs of one path drift
+   apart). Checks the same keyframes, camera centres within 1e-4 m,
+   fused launches 1 + shards x chunks, at most frames + 1 host syncs a
+   chunk;
+   (c) on the loop phase's final map at full capacity (320 keyframes,
+   32768 points), `dist_solve_ba` and `dist_solve_ba_blocks` against
+   `solve_ba`, 10 iterations each, timed with the default algorithms
+   and compared with deterministic ones: live keyframes' translations
+   within 1e-4 m, live points within 1e-3;
+   (d) on that map's CRF tracks, `dist_knn_graph` + `dist_mean_field`
+   against `knn_graph` + `mean_field`: neighbours equal, weights and
+   q_dyn within 1e-6.
+   Prints each stage's ms and the phase's peak memory beside the card's
+   name and power limit.
+16. Prints the kernel report as one JSON line (`launches` = the paths'
    own, the kernel checks' launches apart), the card line again, and
    last `{"ok": true, "device": {...}}`.
 
@@ -124,6 +150,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -165,6 +192,12 @@ LOC_START, LOC_END = 20, 34
 LOC_BLACK = (26, 27)      # black frames inside the localised stretch
 LOC_RECOVER = 2           # frames after the last black one to be tracked again
 LOC_ATE_BAR_M = 0.02      # the reference test's bar
+DIRECT_FRAMES = 8         # tracking-world frames with the "direct" descriptor
+DIST_SHARDS = 2           # the frames mesh on one card: the card listed twice
+DIST_CAM_TOL_M = 1e-4     # the reference's bars (tests/test_dist.py)
+DIST_PT_TOL = 1e-3
+DIST_CRF_TOL = 1e-6
+DIST_BA_ITERS = 10        # solve_ba's default
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
@@ -499,7 +532,7 @@ def count_chunks(slam) -> list:
 def sequence_phase(cam, frames, world, dyn_ms: float):
     """The chunked throughput path at full width (see the module
     docstring, step 6); returns (the path's fused-kernel launches, its
-    ms/frame)."""
+    ms/frame, its poses, its keyframe log)."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.models.system import SLAMSystem
@@ -570,7 +603,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
                                  f"of {n} frames, at most {n + 1} allowed")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return got[0], ms_frame
+    return got[0], ms_frame, poses_tcw, slam.kf_log
 
 
 def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
@@ -580,9 +613,10 @@ def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
     return ate_rmse(kf_time[which], Twc, gt_times, gt_twc)
 
 
-def loop_phase(cam) -> int:
+def loop_phase(cam):
     """Loop closing at full width (see the module docstring, step 7);
-    returns the path's fused-kernel launches."""
+    returns (the path's fused-kernel launches, its final map copied to the
+    host, the tracker's frame index)."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models import system
     from lc_crf_slam_torch.ops import fast_kernel
@@ -733,7 +767,7 @@ def loop_phase(cam) -> int:
                         f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
     if failures:
         raise AssertionError("loop phase: " + "; ".join(failures))
-    return got[0]
+    return got[0], type(m)(*(t.cpu() for t in m)), int(slam.ts.frame_idx)
 
 
 def stereo_phase(cam) -> int:
@@ -1184,6 +1218,223 @@ def localization_phase(cam) -> int:
     return got[0]
 
 
+def direct_descriptor_stage(cam, frames, world) -> int:
+    """The tracking phase's first frames with the "direct" descriptor (see
+    the module docstring, step 14); returns the path's fused-kernel
+    launches."""
+    from lc_crf_slam_torch.config import LoopConfig, ORBConfig, SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
+    cfg = SLAMConfig(loop=LoopConfig(enabled=False),
+                     orb=ORBConfig(descriptor_variant="direct"))
+    t_stage = time.perf_counter()
+    slam = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False, device="cuda")
+    frame_ms, _, got, peak_mb = drive(slam, frames[:DIRECT_FRAMES], ())
+    slam.flush_stats()
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
+    statuses = [s.get("status", 1) for s in slam.stats]
+    if poses.shape != (DIRECT_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"direct descriptor: bad trajectory, shape {poses.shape}")
+    ate = ate_rmse(ts, poses, gt_t, gt)
+    print(f"direct descriptor [{card_line()}]: {DIRECT_FRAMES} frames, median "
+          f"{statistics.median(frame_ms[1:]):.2f} ms/frame after the first, ATE "
+          f"{ate:.5f} m, keyframes {int(slam.map.n_kfs)}, lost frames "
+          f"{statuses.count(2)}, kernel launches (fused, map) {got}, peak memory "
+          f"{peak_mb:.0f} MiB; the stage took {time.perf_counter() - t_stage:.1f} s")
+    check_launches("direct descriptor", got, DIRECT_FRAMES)
+    if 2 in statuses:
+        raise AssertionError(f"direct descriptor: tracking lost: statuses {statuses}")
+    if not ate < ATE_BAR_M:
+        raise AssertionError(f"direct descriptor: ATE {ate} m >= {ATE_BAR_M} m")
+    return got[0]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (on the card, `index_add_` without
+    float atomics) inside the block; an op without one raises."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def synced_ms(fn, *args):
+    """(fn(*args), its ms with a synchronize on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_map,
+                      loop_frame_idx) -> int:
+    """The multi-device layer on the card (see the module docstring, step
+    15); returns the path's fused-kernel launches."""
+    import torch.distributed as dist
+
+    from lc_crf_slam_torch._ops import stable_topk
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models import crf
+    from lc_crf_slam_torch.models.capacities import CRF_TRACKS, RECENCY_WINDOW
+    from lc_crf_slam_torch.models.loopclosing import _map_ba_problem
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.ops import fast_kernel
+    from lc_crf_slam_torch.ops.schur import solve_ba
+    from lc_crf_slam_torch.parallel import dist_ba, dist_crf
+    from lc_crf_slam_torch.parallel.mesh import edge_sharding, init_distributed, make_mesh
+
+    card = card_line()
+    cfg = SLAMConfig()
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # (a) a world of one NCCL rank
+    _, init_ms = synced_ms(lambda: init_distributed(
+        coordinator_address=f"localhost:{free_port()}", num_processes=1, process_id=0,
+        device="cuda"))
+    emesh = make_mesh()
+    print(f"distributed [{card}]: init_distributed {init_ms:.1f} ms: backend "
+          f"{dist.get_backend()}, world {dist.get_world_size()}, edge mesh "
+          f"{[str(d) for d in emesh.devices]}")
+    failures = []
+
+    # (b) the sequence phase's frames through SLAMSystem(mesh=...) and
+    # mesh=None. Local BA and the closures sum with float atomics on the
+    # card, so two runs of one path drift apart in the last bits (ROADMAP
+    # queue 3): both runs use torch's deterministic algorithms, and what
+    # differs between them is the split alone.
+    n_cards = torch.cuda.device_count()
+    devices = ([f"cuda:{i}" for i in range(n_cards)] if n_cards >= 2
+               else ["cuda:0"] * DIST_SHARDS)
+    fmesh = make_mesh(devices=devices, axis="frames")
+    grays = np.stack([f.image for f in frames]).astype(np.float32)
+    depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
+    n_seq = len(frames) - 1
+    runs = {}
+    for name, mesh in (("mesh=None", None), ("mesh", fmesh)):
+        slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cuda",
+                          mesh=mesh)
+        chunks = count_chunks(slam)
+        torch.cuda.synchronize()
+        fast_kernel.reset_launches()
+        with deterministic():
+            poses_tcw = slam.track_sequence(grays, depths, [f.timestamp for f in frames],
+                                            chunk=SEQ_CHUNK)
+            torch.cuda.synchronize()
+        got = path_launches()
+        slam.flush_stats()
+        runs[name] = (poses_tcw, slam.kf_log, chunks, got)
+        del slam
+    poses_tcw, kf_log, chunks, got = runs["mesh"]
+    def centre(T):
+        """Camera centres of poses Tcw (N, 4, 4)."""
+        return np.einsum("nji,nj->ni", T[:, :3, :3], -T[:, :3, 3])
+
+    dpos = float(np.abs(centre(poses_tcw) - centre(runs["mesh=None"][0])).max())
+    spread = float(np.abs(centre(poses_tcw) - centre(seq_poses)).max())
+    n_fused = 1 + sum(min(fmesh.size, c[0]) for c in chunks)
+    ms = {k: sum(c[2] for c in v[2]) / n_seq for k, v in runs.items()}
+    print(f"distributed [{card}]: frames mesh {[str(d) for d in fmesh.devices]}, "
+          f"deterministic algorithms: {n_seq} chunked frames, {ms['mesh']:.2f} ms/frame "
+          f"(chunks {[round(c[2], 1) for c in chunks]} ms), mesh=None {ms['mesh=None']:.2f} "
+          f"(the sequence phase, default algorithms: {seq_ms:.2f}); keyframes in chunks "
+          f"{len(kf_log)}, mesh=None {len(runs['mesh=None'][1])}, the sequence phase "
+          f"{len(seq_kf_log)} (equal: {kf_log == seq_kf_log}); camera centres vs mesh=None "
+          f"max {dpos:.3e} m (vs the sequence phase {spread:.3e} m); kernel launches "
+          f"(fused, map) {got}; host syncs per chunk {[c[1] for c in chunks]} for "
+          f"{[c[0] for c in chunks]} frames")
+    try:
+        check_launches("distributed phase", got, n_fused)
+    except AssertionError as e:
+        failures.append(str(e))
+    if kf_log != runs["mesh=None"][1]:
+        failures.append(f"keyframes {kf_log} != mesh=None's {runs['mesh=None'][1]}")
+    if not dpos <= DIST_CAM_TOL_M:
+        failures.append(f"poses {dpos} m from mesh=None's, more than {DIST_CAM_TOL_M}")
+    for n, syncs, *_ in chunks:
+        if syncs > n + 1:
+            failures.append(f"{syncs} host syncs in a chunk of {n} frames")
+
+    # (c) the loop phase's final map: the whole-map BA three ways, timed
+    # with the default algorithms and compared with deterministic ones
+    m = type(loop_map)(*(t.to("cuda") for t in loop_map))
+    prob = _map_ba_problem(cfg, m)
+    blocks = dist_ba.partition_point_blocks(prob, emesh.size)
+    solves = {
+        "solve_ba": lambda: solve_ba(cam, prob, DIST_BA_ITERS),
+        "dist_solve_ba": lambda: dist_ba.dist_solve_ba(
+            cam, dist_ba.shard_problem(prob, emesh), emesh, n_iters=DIST_BA_ITERS),
+        "dist_solve_ba_blocks": lambda: dist_ba.dist_solve_ba_blocks(
+            cam, dist_ba.shard_problem(blocks, emesh, blocks=True), emesh,
+            n_iters=DIST_BA_ITERS)}
+    timed = {name: synced_ms(fn) for name, fn in solves.items()}
+    with deterministic():
+        exact = {name: fn() for name, fn in solves.items()}
+    kf_live, p_live = m.kf_alive.cpu().numpy(), m.p_alive.cpu().numpy()
+    P = p_live.shape[0]
+
+    def diffs(a, b):
+        dc = float(np.abs((a[0] - b[0])[:, :3, 3].cpu().numpy()[kf_live]).max())
+        dp = float(np.abs((a[1][:P] - b[1]).cpu().numpy()[p_live]).max())
+        return dc, dp
+
+    for name in ("dist_solve_ba", "dist_solve_ba_blocks"):
+        (out, ms_d), (ref, ms_s) = timed[name], timed["solve_ba"]
+        dc, dp = diffs(exact[name], exact["solve_ba"])
+        dc_a, dp_a = diffs(out, ref)
+        print(f"distributed [{card}]: {name} on the loop map (C={m.kf_Tcw.shape[0]}, "
+              f"P={P}, {int(out[2].n_edges)} edges, {int(kf_live.sum())} live keyframes, "
+              f"{int(p_live.sum())} live points), {DIST_BA_ITERS} iterations: "
+              f"{ms_d:.1f} ms (solve_ba {ms_s:.1f} ms); cost {float(out[2].cost):.6g} "
+              f"(solve_ba {float(ref[2].cost):.6g}); max diff to solve_ba, deterministic "
+              f"algorithms: cameras {dc:.3e} m, live points {dp:.3e}; default "
+              f"algorithms (atomics): {dc_a:.3e} m, {dp_a:.3e}")
+        if not (dc <= DIST_CAM_TOL_M and dp <= DIST_PT_TOL):
+            failures.append(f"{name}: cameras {dc} m, points {dp} from solve_ba")
+
+    # (d) the CRF of that map's recent tracks, one rank's rows against the
+    # single-device graph and mean field
+    frame_idx = torch.full((), loop_frame_idx, dtype=torch.int32, device="cuda")
+    recent = m.p_alive & ((frame_idx - m.p_last_seen) <= RECENCY_WINDOW) \
+        & (m.p_visible >= 2)
+    _, ids = stable_topk(recent.to(torch.float32), CRF_TRACKS)
+    ok = recent[ids]
+    u_s, u_d = crf.unary_energies(cfg, m, ids)
+    xyz = m.p_xyz[ids]
+    (nbr_s, w_s), knn_ms = synced_ms(crf.knn_graph, cfg, xyz, ok)
+    q_s, mf_ms = synced_ms(crf.mean_field, cfg, u_s, u_d, nbr_s, w_s, ok)
+    sh = lambda x: edge_sharding(emesh, x)     # noqa: E731
+    (nbr_d, w_d), dknn_ms = synced_ms(dist_crf.dist_knn_graph, cfg, sh(xyz), sh(ok), emesh)
+    q_d, dmf_ms = synced_ms(dist_crf.dist_mean_field, cfg, sh(u_s), sh(u_d), nbr_d, w_d,
+                            sh(ok), emesh)
+    same_nbr = bool(torch.equal(nbr_d, nbr_s))
+    dw = float((w_d - w_s).abs().max())
+    dq = float((q_d - q_s).abs().max())
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    print(f"distributed [{card}]: CRF of the loop map ({int(ok.sum())} of {CRF_TRACKS} "
+          f"tracks): dist_knn_graph {dknn_ms:.2f} ms (knn_graph {knn_ms:.2f}), "
+          f"dist_mean_field {dmf_ms:.2f} ms (mean_field {mf_ms:.2f}); neighbours equal "
+          f"{same_nbr}, max diff weights {dw:.3e}, q_dyn {dq:.3e}")
+    print(f"distributed [{card}]: peak memory of the phase {peak_mb:.0f} MiB; the phase "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    if not (same_nbr and dw <= DIST_CRF_TOL and dq <= DIST_CRF_TOL):
+        failures.append(f"CRF: neighbours equal {same_nbr}, weights {dw}, q_dyn {dq}")
+    dist.destroy_process_group()
+    if failures:
+        raise AssertionError("distributed phase: " + "; ".join(failures))
+    return got[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1246,8 +1497,9 @@ def main() -> int:
     # ---- the phases at full width -------------------------------------------
     by_path = {"tracking": tracking_phase(cam, frames, world)}
     by_path["dynamic"], dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world)
-    by_path["sequence"], seq_ms = sequence_phase(cam, dyn_frames, dyn_world, dyn_ms)
-    by_path["loop"] = loop_phase(cam)
+    by_path["sequence"], seq_ms, seq_poses, seq_kf_log = sequence_phase(
+        cam, dyn_frames, dyn_world, dyn_ms)
+    by_path["loop"], loop_map, loop_frame_idx = loop_phase(cam)
     by_path["stereo"] = stereo_phase(cam)
     by_path["stereo_sequence"] = stereo_sequence_phase(cam, dyn_frames, dyn_rights,
                                                        dyn_world, seq_ms)
@@ -1255,6 +1507,10 @@ def main() -> int:
     sim3_closure_stage(mono)
     by_path.update(tum_phase(cam, world, frames))
     by_path["localization"] = localization_phase(cam)
+    by_path["direct_descriptor"] = direct_descriptor_stage(cam, frames, world)
+    by_path["distributed"] = distributed_phase(cam, dyn_frames, dyn_world, seq_ms,
+                                               seq_poses, seq_kf_log, loop_map,
+                                               loop_frame_idx)
     if min(by_path.values()) < 1:
         raise AssertionError(f"a path never launched the fused kernel: {by_path}")
 

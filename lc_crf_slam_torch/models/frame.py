@@ -3,9 +3,10 @@
 
 pyramid -> dual-threshold FAST + NMS + best corner per cell (one launch
 of the fused CUDA kernel on the card, for all levels of all frames of a
-batch) -> top-k over cells -> IC orientation + steered BRIEF-256 -> depth
-lookup -> virtual right coordinate. `frame_from_observations` makes a
-Frame from given keypoints instead (the observation-level entry points).
+batch) -> top-k over cells -> IC orientation + steered BRIEF-256 (either
+variant) -> depth lookup -> virtual right coordinate.
+`frame_from_observations` makes a Frame from given keypoints instead (the
+observation-level entry points).
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from ..ops.fast_kernel import fast_cell_best
 from ..ops.orb import (
     PATCH_MARGIN,
     _gather_patches,
+    brief_descriptors_direct,
     brief_descriptors_matmul,
+    ic_angles,
     ic_angles_from_patches,
 )
-from ..ops.pyramid import build_pyramid_batch, features_per_level
+from ..ops.pyramid import build_pyramid_batch, features_per_level, gaussian_blur
 from ..ops.select import select_from_cells
 
 
@@ -47,14 +50,20 @@ class Frame(NamedTuple):
 
 
 def orient_and_describe(cfg: SLAMConfig, img_l: torch.Tensor, uv_l: torch.Tensor):
-    """IC orientation + steered BRIEF-256 of one level's keypoints (the
-    "matmul" variant, the reference's default)."""
-    if cfg.orb.descriptor_variant != "matmul":
-        raise NotImplementedError(
-            f"descriptor_variant={cfg.orb.descriptor_variant!r} is not ported")
-    patches_l = _gather_patches(img_l, uv_l, PATCH_MARGIN + 3)
-    ang_l = ic_angles_from_patches(patches_l)
-    return ang_l, brief_descriptors_matmul(patches_l, ang_l)
+    """IC orientation + steered BRIEF-256 of one level's keypoints, by
+    `cfg.orb.descriptor_variant`: "matmul" (the default: one 45x45 patch
+    feeds the angle and the angle-binned difference matmul) or "direct"
+    (the reference semantics: the exact-angle rotated samples of the
+    blurred level)."""
+    variant = cfg.orb.descriptor_variant
+    if variant == "matmul":
+        patches_l = _gather_patches(img_l, uv_l, PATCH_MARGIN + 3)
+        ang_l = ic_angles_from_patches(patches_l)
+        return ang_l, brief_descriptors_matmul(patches_l, ang_l)
+    if variant != "direct":
+        raise ValueError(f"descriptor_variant={variant!r}: 'matmul' or 'direct'")
+    ang_l = ic_angles(img_l, uv_l)
+    return ang_l, brief_descriptors_direct(gaussian_blur(img_l, 7, 2.0), uv_l, ang_l)
 
 
 def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,

@@ -20,8 +20,10 @@ keyframe, SearchAndFuse on the current keyframe; `correct_loop_sim3` is
 its monocular form (`cfg.loop.fix_scale=False`) over Sim(3) nodes.
 `global_ba` is the joint matrix-free Schur LM over the whole map
 (`ops/schur.py::solve_ba_cg`), run by the system in budgeted slices;
-`search_and_fuse` over the group follows once the budget is spent. None of these reads the device on the
-host. `global_ba_alternating` is not carried over.
+`search_and_fuse` over the group follows once the budget is spent.
+`global_ba_alternating` is the block-coordinate alternative: camera and
+point Gauss-Newton half-steps in turn. None of these reads the device on
+the host.
 
 Tracking::Relocalization (`relocalize`): retrieval of the RELOC_CANDS
 keyframes whose descriptor embeddings best match the frame (0.75 × best
@@ -42,12 +44,13 @@ import torch
 from .._ops import put_row, stable_topk, take_row
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
-from ..geometry.se3 import make_se3, se3_inverse
+from ..geometry.se3 import exp_se3, make_se3, se3_inverse
 from ..geometry.sim3 import se3_from_sim3, sim3_compose, sim3_from_se3, sim3_inverse
 from ..ops.match import hamming_matrix, match_nn, projection_gate, resolve_duplicates
 from ..ops.pnp import PnPSampler, pnp_ransac
 from ..ops.ransac import HornSampler, horn_ransac
-from ..ops.schur import BAProblem, solve_ba_cg
+from ..ops.schur import (BAProblem, _edge_residuals, _robust_weights, _sum_into,
+                         solve_ba_cg)
 from .ba import pose_optimize
 from .frame import Frame
 from .mapping import fuse_duplicates
@@ -413,6 +416,44 @@ def global_ba(cfg: SLAMConfig, cam: Pinhole, m: MapState, n_iters: int = 8) -> M
     matrix-free Schur solve over every keyframe and point of the map."""
     cam_Tcw, p_xyz, _ = solve_ba_cg(cam, _map_ba_problem(cfg, m), n_iters=n_iters,
                                     huber_delta=cfg.local_ba.huber_delta)
+    return m._replace(kf_Tcw=cam_Tcw, p_xyz=p_xyz)
+
+
+def global_ba_alternating(cfg: SLAMConfig, cam: Pinhole, m: MapState,
+                          n_rounds: int = 6) -> MapState:
+    """Block-coordinate global BA: each of `n_rounds` rounds takes one
+    damped Gauss-Newton half-step of every live camera but keyframe 0
+    (block-diagonal 6x6 systems), then one of every observed point (3x3
+    systems), each against the Huber-weighted reprojections of the whole
+    map. The fixed point of joint BA where it converges, cheaper a
+    round."""
+    prob = _map_ba_problem(cfg, m)
+    huber = cfg.local_ba.huber_delta
+    F, P = m.kf_Tcw.shape[0], m.p_xyz.shape[0]
+    movable = (~prob.cam_fixed) & m.kf_alive
+
+    def weights(cam_Tcw, p_xyz):
+        r, J_cam, J_pt, z_ok = _edge_residuals(cam, cam_Tcw, p_xyz, prob)
+        active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
+        return r, J_cam, J_pt, _robust_weights(r, prob.e_w, active, huber)[1]
+
+    def damped_step(n, idx, wJ, J, r, k):
+        """-(H + 1e-3 diag H + 1e-6 I)^-1 g of each of n k x k blocks; H."""
+        H = _sum_into(n, idx, torch.einsum("eij,eik->ejk", wJ, J))
+        g = _sum_into(n, idx, torch.einsum("eij,ei->ej", wJ, r))
+        eye = torch.eye(k, dtype=H.dtype, device=H.device)
+        H = H + 1e-3 * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-6 * eye
+        return -torch.linalg.solve_ex(H, g[..., None])[0][..., 0], H
+
+    cam_Tcw, p_xyz = m.kf_Tcw, m.p_xyz
+    for _ in range(n_rounds):
+        r, J_cam, _, w = weights(cam_Tcw, p_xyz)
+        delta_c, _ = damped_step(F, prob.e_cam, w[:, None, None] * J_cam, J_cam, r, 6)
+        cam_Tcw = exp_se3(delta_c * movable[:, None].to(delta_c.dtype)) @ cam_Tcw
+        r, _, J_pt, w = weights(cam_Tcw, p_xyz)
+        delta_p, Hpp = damped_step(P, prob.e_pt, w[:, None, None] * J_pt, J_pt, r, 3)
+        has_obs = torch.einsum("pii->p", Hpp) > 1e-5
+        p_xyz = p_xyz + torch.where((prob.p_valid & has_obs)[:, None], delta_p, 0.0)
     return m._replace(kf_Tcw=cam_Tcw, p_xyz=p_xyz)
 
 

@@ -35,7 +35,11 @@ which pins `cfg.sensor` before the first frame (`_set_sensor`):
   two-view initialisation (`models/initializer.py`), map by triangulation
   only, and close loops over Sim(3) (`correct_loop_sim3`,
   `cfg.loop.fix_scale=False`).
-Only the "direct" descriptor raises `NotImplementedError`.
+With a "frames" mesh (`SLAMSystem(mesh=parallel.mesh.make_mesh(...,
+axis="frames"))`) a chunk's images split over the mesh's devices in
+contiguous shards: each device builds its shard's frames (one FAST launch
+a shard) and runs its shard's forward flow, and the products gather to
+the system's device, where the tracking loop runs as without a mesh.
 
 `track_rgbd` reads the device once per frame (the keyframe decision and
 the tracking status), and so does a stereo or monocular frame once the
@@ -66,11 +70,12 @@ from .._ops import scatter_set, take_row
 from ..config import SLAMConfig
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import se3_inverse
-from ..ops.lk_flow import lk_track, lk_track_batch
+from ..ops.lk_flow import FlowResult, lk_track, lk_track_batch
 from ..ops.match import hamming_matrix, match_nn, projection_gate
 from ..ops.pnp import uniform_sampler
 from ..ops.ransac import multinomial_sampler
 from ..ops.stereo import stereo_match
+from ..parallel.mesh import Mesh
 from ..utils.io_tum import write_trajectory_tum
 from ..utils.profiling import StageTimer
 from .ba import draw_consensus
@@ -94,13 +99,6 @@ _AUDIT_SEED = 17   # the reference keys its audit draws with PRNGKey(17)
 _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
 _LOOP_SEED = 11    # the port's own stream for the loop verification's draws
 _MONO_SEED = 19    # ... and for the two-view initialisation's
-
-
-def _check_ported(cfg: SLAMConfig) -> None:
-    if cfg.orb.descriptor_variant != "matmul":
-        raise NotImplementedError(
-            "not carried into lc_crf_slam_torch: "
-            f"descriptor_variant={cfg.orb.descriptor_variant!r}")
 
 
 def _project(cam: Pinhole, Tcw: torch.Tensor, pw: torch.Tensor):
@@ -201,21 +199,26 @@ class SLAMSystem:
     `seq_phases` to a dict and `track_sequence` adds the host seconds of
     its phases to it (frontend, lk, steps, crf, chunk_fetch, host_misc,
     reloc_host, loop_host); the device runs behind the host, and the fetch
-    absorbs what it still has to do.
+    absorbs what it still has to do. `mesh` (axis "frames") splits a
+    chunk's front-end and forward flow over its devices; everything else
+    runs on `device`.
     """
 
     def __init__(self, cam: Pinhole, cfg: Optional[SLAMConfig] = None,
                  log_path: Optional[str] = None, enable_mapping: bool = True,
                  enable_crf: Optional[bool] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
         self.cam = cam
         self.cfg = cfg or SLAMConfig()
         self.enable_mapping = enable_mapping
         self.enable_crf = self.cfg.crf.enabled if enable_crf is None else enable_crf
         self.enable_loop = self.cfg.loop.enabled
         self.seq_phases: Optional[dict] = None
-        _check_ported(self.cfg)
         self.device = torch.device(device)
+        if mesh is not None and mesh.axis != "frames":
+            raise ValueError(f"SLAMSystem shards a chunk's frames: the mesh's axis "
+                             f"must be 'frames', not {mesh.axis!r}")
+        self.mesh = mesh
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -595,7 +598,7 @@ class SLAMSystem:
         take = g.shape[0]
         clock = _PhaseClock(self.seq_phases)
 
-        frames = self._stereo_frames(g, d) if stereo else build_frames(cam, cfg, g, d)
+        frames = self._chunk_frames(g, d, stereo)
         clock.lap("frontend")
         prev_grays = [self._last_gray if self._last_gray is not None else g[0],
                       *g[:-1]]
@@ -603,9 +606,7 @@ class SLAMSystem:
             # forward LK (frame k-1's keypoints -> image k) does not depend
             # on the poses: the whole chunk's runs ahead of the loop
             prev_uvs = [self.ts.last_uv, *(f.uv for f in frames[:-1])]
-            ones = torch.ones_like(frames[0].valid)
-            flow = lk_track_batch(prev_grays, g, prev_uvs, [ones] * take,
-                                  n_levels=cfg.crf.flow_levels)
+            flow = self._chunk_flow(prev_grays, g, prev_uvs)
         clock.lap("lk")
         t_dev = self._upload(timestamps, torch.float64)
         spawn_gate = self.enable_crf and cfg.crf.spawn_flow_gate > 0
@@ -709,6 +710,47 @@ class SLAMSystem:
         self._pump_gba()
         clock.lap("loop_host")
         return Tcw_np
+
+    def _shards(self, take: int) -> List[tuple]:
+        """(device, start, stop) of each non-empty shard of a chunk's
+        `take` frames: contiguous, in the mesh's order, the first
+        `take % size` one frame longer."""
+        per, extra = divmod(take, self.mesh.size)
+        out, a = [], 0
+        for i, dev in enumerate(self.mesh.devices):
+            b = a + per + (i < extra)
+            if b > a:
+                out.append((dev, a, b))
+            a = b
+        return out
+
+    def _chunk_frames(self, g: torch.Tensor, d: torch.Tensor,
+                      stereo: bool) -> List[Frame]:
+        """The chunk's Frames on the system's device: one batch, or with a
+        mesh one batch per shard on its device, gathered back."""
+        build = self._stereo_frames if stereo else (
+            lambda gs, ds: build_frames(self.cam, self.cfg, gs, ds))
+        if self.mesh is None:
+            return build(g, d)
+        return [Frame(*(t.to(self.device) for t in f))
+                for dev, a, b in self._shards(g.shape[0])
+                for f in build(g[a:b].to(dev), d[a:b].to(dev))]
+
+    def _chunk_flow(self, prev_grays: Sequence[torch.Tensor], g: torch.Tensor,
+                    prev_uvs: Sequence[torch.Tensor]) -> FlowResult:
+        """Forward LK of every (frame k-1, frame k) pair of the chunk, with
+        a mesh each shard's pairs on its device, gathered back."""
+        ones = torch.ones(prev_uvs[0].shape[0], dtype=torch.bool, device=self.device)
+        flow_levels = self.cfg.crf.flow_levels
+        if self.mesh is None:
+            return lk_track_batch(prev_grays, g, prev_uvs, [ones] * g.shape[0],
+                                  n_levels=flow_levels)
+        parts = [lk_track_batch([x.to(dev) for x in prev_grays[a:b]], g[a:b].to(dev),
+                                [u.to(dev) for u in prev_uvs[a:b]],
+                                [ones.to(dev)] * (b - a), n_levels=flow_levels)
+                 for dev, a, b in self._shards(g.shape[0])]
+        return FlowResult(*(torch.cat([f.to(self.device) for f in field])
+                            for field in zip(*parts)))
 
     def _try_close_loop(self, pre=None) -> None:
         """LoopClosing::Run body for a newly inserted keyframe: detection

@@ -1,10 +1,14 @@
-"""Oriented BRIEF-256: intensity-centroid angle + steered BRIEF, the
-"matmul" variant (counterpart of lc_crf_slam_tpu/ops/orb.py).
+"""Oriented BRIEF-256: intensity-centroid angle + steered BRIEF
+(counterpart of lc_crf_slam_tpu/ops/orb.py), in two variants.
 
-One 45x45 patch per keypoint feeds both the angle and an in-patch blur;
-the blurred 39x39 support times the angle-binned difference matrix
-(`_brief_bin_matrix`, bilinear sample taps) gives every bin's sample
-differences, and the keypoint's two neighbouring bins are interpolated.
+"matmul" (the default): one 45x45 patch per keypoint feeds both the angle
+and an in-patch blur; the blurred 39x39 support times the angle-binned
+difference matrix (`_brief_bin_matrix`, bilinear sample taps) gives every
+bin's sample differences, and the keypoint's two neighbouring bins are
+interpolated. "direct" (the reference semantics, computeOrbDescriptor):
+the angle from a 31x31 patch (`ic_angles`), and each pair's two samples
+read from the blurred level at their positions rotated by the exact angle
+and rounded (`brief_descriptors_direct`).
 Descriptors are (K, 8) int32 bit-views of the reference's uint32 words.
 `brief_pattern` and `_brief_bin_matrix` are numpy constants, rebuilt here
 by the reference's own recipe (a test holds them equal).
@@ -33,6 +37,11 @@ def brief_pattern() -> np.ndarray:
     return np.clip(
         np.round(rng.normal(0.0, 31 / 5.0, size=(256, 4))), -13, 13
     ).astype(np.int8)
+
+
+@functools.lru_cache(maxsize=4)
+def _brief_pattern_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(brief_pattern().astype(np.float32)).to(device)
 
 
 @functools.lru_cache(maxsize=1)
@@ -95,14 +104,39 @@ def _gather_patches(img: torch.Tensor, uv: torch.Tensor, half: int) -> torch.Ten
 
 
 def ic_angles_from_patches(patches: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation from (K, 45, 45) unblurred patches
-    (centre 31x31 used): (K,) radians."""
+    """Intensity-centroid orientation from (K, S, S) unblurred patches,
+    S >= 31 odd (centre 31x31 used): (K,) radians."""
     wx, wy = _ic_weights(patches.device)
     m = patches.shape[1] // 2 - HALF_PATCH
     ctr = patches[:, m:m + 2 * HALF_PATCH + 1, m:m + 2 * HALF_PATCH + 1]
     m10 = torch.sum(ctr * wx, dim=(-2, -1))
     m01 = torch.sum(ctr * wy, dim=(-2, -1))
     return torch.atan2(m01, m10)
+
+
+def ic_angles(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation of each keypoint from its 31x31
+    patch of the unblurred level image: (K,) radians."""
+    return ic_angles_from_patches(_gather_patches(img, uv, HALF_PATCH))
+
+
+def brief_descriptors_direct(img_blur: torch.Tensor, uv: torch.Tensor,
+                             angles: torch.Tensor) -> torch.Tensor:
+    """Steered BRIEF-256 sampled on the blurred level image directly: each
+    pair's two points rotated by the keypoint's angle, rounded to the
+    pixel and clamped to the image; bit = first sample < second. (K, 8)
+    int32."""
+    pat = _brief_pattern_on(img_blur.device)
+    ca, sa = torch.cos(angles)[:, None, None], torch.sin(angles)[:, None, None]
+    px = torch.stack([pat[:, 0], pat[:, 2]], dim=-1)         # (256, 2)
+    py = torch.stack([pat[:, 1], pat[:, 3]], dim=-1)
+    rx = torch.round(ca * px - sa * py).to(torch.int64)
+    ry = torch.round(sa * px + ca * py).to(torch.int64)
+    H, W = img_blur.shape
+    x = torch.clamp(uv[:, 0:1, None].to(torch.int64) + rx, 0, W - 1)
+    y = torch.clamp(uv[:, 1:2, None].to(torch.int64) + ry, 0, H - 1)
+    vals = img_blur.reshape(-1)[y * W + x]                     # (K, 256, 2)
+    return pack_bits(vals[..., 0] < vals[..., 1])
 
 
 def _blur_patches(patches: torch.Tensor, ksize: int = 7,

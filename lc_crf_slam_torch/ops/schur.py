@@ -123,15 +123,16 @@ def _sum_into(n: int, idx: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, idx.long(), blocks)
 
 
-def _lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta):
-    """One assembly + Schur solve + back-substitution; returns the
-    candidate (cam_Tcw', p_xyz').
+def _partial_blocks(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, huber_delta):
+    """The normal equations' blocks summed over the edges of `prob` (all
+    of them, or one rank's shard in `parallel/dist_ba.py`): camera Hcc
+    (C, 6, 6) and g_c (C, 6), point Hpp (P, 3, 3) and g_p (P, 3), and the
+    coupling W as dense (P, C, 6, 3) blocks.
 
-    Every edge is summed into its camera, point and coupling blocks. The
-    reference's generic path gathers through a (P, C) table that holds
-    one edge per (point, camera) pair and so drops the others of a pair
-    that a keyframe observes twice; its grid path, which local BA runs,
-    sums them, as here."""
+    Every edge is summed into its blocks. The reference's generic path
+    gathers through a (P, C) table that holds one edge per (point, camera)
+    pair and so drops the others of a pair that a keyframe observes twice;
+    its grid path, which local BA runs, sums them, as here."""
     C, P = cam_Tcw.shape[0], p_xyz.shape[0]
     r, J_cam, J_pt, z_ok = _edge_residuals(cam, cam_Tcw, p_xyz, prob)
     active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
@@ -145,36 +146,56 @@ def _lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta):
     g_c = _sum_into(C, e_cam, torch.einsum("eij,ei->ej", wJc, r))
     Hpp = _sum_into(P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt))
     g_p = _sum_into(P, e_pt, torch.einsum("eij,ei->ej", wJp, r))
-    # coupling W as dense (P, C) blocks
     Wpc = _sum_into(P * C, e_pt.long() * C + e_cam.long(),
                     torch.einsum("eij,eik->ejk", wJc, J_pt)).reshape(P, C, 6, 3)
+    return Hcc, g_c, Hpp, g_p, Wpc
 
-    # damped point-block inverse
+
+def _point_schur(Hpp, g_p, Wpc, lam):
+    """The points' share of the reduced camera system: the damped point
+    inverses Hpp^-1, T = W Hpp^-1 (P, C, 6, 3), W Hpp^-1 W^T as one
+    (6C, 3P) x (3P, 6C) product, never a (P, 6C, 6C) tensor, and
+    W Hpp^-1 g_p (C, 6)."""
+    P, C = Wpc.shape[:2]
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     Hpp_inv = inv3x3(Hpp + lam * torch.diag_embed(torch.diagonal(Hpp, dim1=-2, dim2=-1))
                      + 1e-6 * eye3)
-
-    # Schur complement S = Hcc_d - W Hpp^-1 W^T, as one (6C, 3P) product
     Tpc = torch.einsum("pcia,pab->pcib", Wpc, Hpp_inv)          # (P, C, 6, 3)
     Tm = Tpc.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
     Wm = Wpc.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
-    S = -(Tm @ Wm.T)
+    return Hpp_inv, Tpc, Tm @ Wm.T, torch.einsum("pcia,pa->ci", Tpc, g_p)
+
+
+def _camera_step(Hcc, g_c, S_red, rhs_red, cam_fixed, lam):
+    """Solve the reduced system (Hcc_d - W Hpp^-1 W^T) dc = -(g_c -
+    W Hpp^-1 g_p) densely; fixed cameras do not move."""
+    C = Hcc.shape[0]
     Hcc_d = Hcc + lam * torch.diag_embed(torch.diagonal(Hcc, dim1=-2, dim2=-1))
-    S = S + torch.block_diag(*Hcc_d.unbind(0))
+    S = -S_red + torch.block_diag(*Hcc_d.unbind(0))
     # keep fixed/empty camera blocks invertible
-    fixed_diag = prob.cam_fixed.to(S.dtype)[:, None].expand(C, 6).reshape(-1) \
+    fixed_diag = cam_fixed.to(S.dtype)[:, None].expand(C, 6).reshape(-1) \
         + (torch.abs(torch.diagonal(S)) < 1e-8).to(S.dtype)
     S = S + torch.diag(fixed_diag + 1e-6)
-
-    rhs = (g_c - torch.einsum("pcia,pa->ci", Tpc, g_p)).reshape(C * 6)
+    rhs = (g_c - rhs_red).reshape(C * 6)
     delta_c = -torch.linalg.solve_ex(S, rhs[:, None])[0][:, 0].reshape(C, 6)
-    delta_c = delta_c * (~prob.cam_fixed).to(delta_c.dtype)[:, None]
+    return delta_c * (~cam_fixed).to(delta_c.dtype)[:, None]
 
-    # back-substitute points: dp = -Hpp^-1 (g_p + sum_c W^T dc)
+
+def _back_substitute(Hpp, g_p, Wpc, Hpp_inv, p_valid, delta_c):
+    """dp = -Hpp^-1 (g_p + sum_c W^T dc) for the valid, observed points."""
     Wt_dc = torch.einsum("pcia,ci->pa", Wpc, delta_c)
     delta_p = -torch.einsum("pab,pb->pa", Hpp_inv, g_p + Wt_dc)
     has_obs = torch.einsum("pii->p", Hpp) > 0
-    delta_p = torch.where((prob.p_valid & has_obs)[:, None], delta_p, 0.0)
+    return torch.where((p_valid & has_obs)[:, None], delta_p, 0.0)
+
+
+def _solve_from_blocks(cam_Tcw, p_xyz, prob: BAProblem, blocks, lam):
+    """Schur solve and back-substitution from the summed blocks; returns
+    the candidate (cam_Tcw', p_xyz')."""
+    Hcc, g_c, Hpp, g_p, Wpc = blocks
+    Hpp_inv, _, S_red, rhs_red = _point_schur(Hpp, g_p, Wpc, lam)
+    delta_c = _camera_step(Hcc, g_c, S_red, rhs_red, prob.cam_fixed, lam)
+    delta_p = _back_substitute(Hpp, g_p, Wpc, Hpp_inv, prob.p_valid, delta_c)
     return exp_se3(delta_c) @ cam_Tcw, p_xyz + delta_p
 
 
@@ -198,7 +219,8 @@ def solve_ba(cam: Pinhole, prob: BAProblem, n_iters: int = 10,
     lam = torch.full((), init_lambda, dtype=torch.float32, device=p_xyz.device)
     _, f_old = total_cost(cam_Tcw, p_xyz)
     for _ in range(n_iters):
-        cam_new, p_new = _lm_step(cam, cam_Tcw, p_xyz, prob, lam, huber_delta)
+        blocks = _partial_blocks(cam, cam_Tcw, p_xyz, prob, huber_delta)
+        cam_new, p_new = _solve_from_blocks(cam_Tcw, p_xyz, prob, blocks, lam)
         _, f_new = total_cost(cam_new, p_new)
         # a non-finite candidate is never adopted
         accept = (f_new < f_old) & torch.all(torch.isfinite(cam_new)) \

@@ -5,8 +5,9 @@ Usage:
   # a TUM RGB-D sequence directory:
   python -m lc_crf_slam_torch.run_slam --seq DIR [--assoc FILE]
       [--camera tum1|tum2|tum3|bonn] [--config cfg.yaml] [--device cuda|cpu]
-      [--throughput [--chunk N]] [--checkpoint FILE | --resume FILE]
+      [--cpu] [--throughput [--chunk N]] [--checkpoint FILE | --resume FILE]
       [--profile DIR] [--timing] [--log run.jsonl] [--out traj.txt]
+      [--distributed]
 
   # a synthetic sequence (no dataset needed):
   python -m lc_crf_slam_torch.run_slam --synthetic [--frames N]
@@ -15,7 +16,9 @@ Usage:
 Writes the TUM-format trajectory and keyframe trajectory, the per-frame
 JSONL log, optionally a map plot and a checkpoint, and prints one JSON
 summary line (with ATE when ground truth is available). The system runs
-on the card unless `--device cpu` is given; without a card it raises.
+on the card unless `--device cpu` (or `--cpu`) is given; without a card it
+raises. `--distributed` joins the process group of torchrun's environment
+first, as the reference's CLI does, and then runs as without it.
 """
 
 from __future__ import annotations
@@ -79,8 +82,13 @@ def build_argparser() -> argparse.ArgumentParser:
                     "per-frame calls")
     ap.add_argument("--chunk", type=int, default=8,
                     help="frames per chunk in --throughput mode")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the same as --device cpu)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-device run (not ported: raises)")
+                    help="join the torch.distributed process group that "
+                    "torchrun's environment names (MASTER_ADDR, MASTER_PORT, "
+                    "RANK, WORLD_SIZE) before anything else: NCCL on the "
+                    "card, gloo with --device cpu")
     return ap
 
 
@@ -192,10 +200,12 @@ def lost_frames(stats) -> int:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.cpu:
+        args.device = "cpu"
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed: the multi-device path (parallel/, SLAMSystem(mesh=)) "
-            "is not ported to lc_crf_slam_torch")
+        from .parallel.mesh import init_distributed
+
+        init_distributed(device=args.device)
 
     from .config import SLAMConfig, load_yaml
     from .models.system import SLAMSystem

@@ -48,10 +48,13 @@ def test_argparser():
 
 
 def test_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        run_slam.main(["--synthetic", "--distributed", "--device", "cpu"])
+    """Without a card, the default device and a distributed run on it (an
+    NCCL group) raise; `--cpu` is `--device cpu`."""
+    assert run_slam.build_argparser().parse_args(["--synthetic", "--cpu"]).cpu
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device runs")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_slam.main(["--synthetic", "--distributed"])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_slam.main(["--synthetic", "--frames", "2"])
 

@@ -15,6 +15,7 @@ from lc_crf_slam_tpu.ops import select as ref_select_mod
 from lc_crf_slam_tpu.ops.select import select_keypoints as ref_select
 from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
 from lc_crf_slam_torch._ops import popcount32, u32_to_i32
+from lc_crf_slam_torch.models import frame as frame_mod
 from lc_crf_slam_torch.models.frame import build_frame, build_frames
 from lc_crf_slam_torch.ops import orb, pyramid
 from lc_crf_slam_torch.ops.fast_kernel import fast_cell_best, fast_score_dual_nms
@@ -247,3 +248,56 @@ def test_fused_cells_equal_selection_from_score_maps(qvga_batch):
         out = select_from_cells(*(t[0] for t in cells[l]), quotas[l])
         for a, b in zip(ref, out):
             assert torch.equal(a, b), l
+
+
+def _direct(cfg):
+    import dataclasses
+
+    return cfg.replace(orb=dataclasses.replace(cfg.orb, descriptor_variant="direct"))
+
+
+def test_direct_descriptors_match_reference(qvga_frames):
+    """The "direct" variant on the reference's level-0 image and keypoints
+    of the QVGA frame: angles to 1e-3 rad (the moment sums run in another
+    order); fed the reference's angles, the descriptors are bitwise the
+    reference's; with their own angles at least 99% are identical and none
+    is more than 2 bits apart (a rotated sample lands on the other side of
+    a pixel's rounding edge)."""
+    ref, _ = qvga_frames
+    gray = jnp.asarray(render(RefWorld(cam=CAM_REF, n_frames=6, n_static=500,
+                                       n_dynamic=0, seed=5), 2)[0])
+    at0 = np.asarray(ref.valid) & (np.asarray(ref.level) == 0)
+    uv = np.asarray(ref.uv)[at0].astype(np.int32)
+    a_ref = np.asarray(ref_orb.ic_angles(gray, jnp.asarray(uv)))
+    d_ref = u32_to_i32(np.asarray(ref_orb.brief_descriptors_direct(
+        ref_pyramid.gaussian_blur(gray, 7, 2.0), jnp.asarray(uv), jnp.asarray(a_ref))))
+    img, uv_t = torch.from_numpy(np.asarray(gray)), torch.from_numpy(uv)
+    angles = orb.ic_angles(img, uv_t)
+    np.testing.assert_allclose(angles.numpy(), a_ref, atol=1e-3)
+    blurred = pyramid.gaussian_blur(img, 7, 2.0)
+    np.testing.assert_array_equal(
+        orb.brief_descriptors_direct(blurred, uv_t, torch.from_numpy(a_ref)).numpy(), d_ref)
+    _, desc = frame_mod.orient_and_describe(_direct(SLICE_CFG), img, uv_t)
+    ham = popcount32(torch.from_numpy(d_ref) ^ desc).sum(-1).numpy()
+    assert len(ham) > 200 and np.mean(ham == 0) >= 0.99 and ham.max() <= 2, (
+        len(ham), np.mean(ham == 0), ham.max())
+
+
+def test_matmul_variant_agreement_with_direct():
+    """The reference's bit-agreement golden (tests/test_frontend.py,
+    `test_matmul_variant_agreement_with_direct`) on the port's two
+    variants, at the reference's bar: median cross-variant Hamming under
+    TH_LOW - 20, the worst under TH_LOW."""
+    from lc_crf_slam_torch.config import SLAMConfig
+
+    cfg = SLAMConfig()
+    rng = np.random.default_rng(9)
+    img = pyramid.gaussian_blur(torch.from_numpy(
+        (rng.random((160, 160)) * 255).astype(np.float32)), 5, 1.2)
+    uv = torch.from_numpy(np.stack([rng.integers(50, 110, 32),
+                                    rng.integers(50, 110, 32)], -1).astype(np.int32))
+    _, d_dir = frame_mod.orient_and_describe(_direct(cfg), img, uv)
+    _, d_mm = frame_mod.orient_and_describe(cfg, img, uv)
+    cross = popcount32(d_dir ^ d_mm).sum(-1).numpy()
+    assert np.median(cross) < cfg.matcher.th_low - 20, np.median(cross)
+    assert cross.max() < cfg.matcher.th_low, cross.max()

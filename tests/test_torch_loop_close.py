@@ -198,6 +198,26 @@ def test_global_ba_matches_reference(loop_state):
     assert np.median(moved) > 1e-3
 
 
+def test_global_ba_alternating_matches_reference(loop_state):
+    """The block-coordinate global BA, 5 rounds on the drifted map with 3
+    cm of noise on its live points (tests/test_loopclosing.py's
+    TestGlobalBA at this module's capacities): keyframe poses to 1e-4,
+    live points to 1e-3; the points come back toward the map."""
+    m_ref = loop_state["m_ref"]
+    noise = 0.03 * jax.random.normal(jax.random.PRNGKey(3), m_ref.p_xyz.shape)
+    noisy_ref = m_ref._replace(p_xyz=jnp.where(m_ref.p_alive[:, None],
+                                               m_ref.p_xyz + noise, m_ref.p_xyz))
+    ref = ref_lc.global_ba_alternating(CFG, REF_TUM3, noisy_ref, n_rounds=5)
+    out = lc.global_ba_alternating(CFG, TUM3, convert.map_to_torch(noisy_ref), n_rounds=5)
+    np.testing.assert_allclose(out.kf_Tcw.numpy(), np.asarray(ref.kf_Tcw), atol=1e-4)
+    alive = np.asarray(m_ref.p_alive)
+    np.testing.assert_allclose(out.p_xyz.numpy()[alive], np.asarray(ref.p_xyz)[alive],
+                               atol=1e-3)
+    dist = lambda m: np.linalg.norm(np.asarray(m.p_xyz) - np.asarray(m_ref.p_xyz),
+                                    axis=-1)[alive]
+    assert np.median(dist(out)) < 0.5 * np.median(dist(noisy_ref))
+
+
 # ---- the system's glue -----------------------------------------------------
 
 def _pre(cfg, kf):

@@ -215,8 +215,8 @@ def test_gate_after_a_recent_loop(monkeypatch):
 
 def test_ready_candidate_raises_by_name(monkeypatch):
     """A ready candidate is verified, no longer refused, and so it is with
-    the monocular Sim(3) loop (`fix_scale=False`), which used to raise by
-    name; only the "direct" descriptor still does."""
+    the monocular Sim(3) loop (`fix_scale=False`) and with the "direct"
+    descriptor, which both used to raise by name."""
     _, port, _, verified_port = both_systems(monkeypatch)
     port._consistent_groups = [(SEQUENCE[0][3][0], 2)]
     port._try_close_loop(pre=SEQUENCE[0])
@@ -227,9 +227,11 @@ def test_ready_candidate_raises_by_name(monkeypatch):
     mono._consistent_groups = [(SEQUENCE[0][3][0], 2)]
     mono._try_close_loop(pre=SEQUENCE[0])
     assert verified_port == [3, 3] and mono.loop_log == []
-    with pytest.raises(NotImplementedError, match="descriptor_variant"):
-        SLAMSystem(CAM, free_scale.replace(orb=config.ORBConfig(
-            descriptor_variant="direct")), device="cpu")
+    direct = SLAMSystem(CAM, free_scale.replace(orb=config.ORBConfig(
+        descriptor_variant="direct")), device="cpu")
+    direct._consistent_groups = [(SEQUENCE[0][3][0], 2)]
+    direct._try_close_loop(pre=SEQUENCE[0])
+    assert verified_port == [3, 3, 3] and direct.loop_log == []
 
 
 def test_detection_on_the_current_keyframe(loop_map, monkeypatch):

@@ -11,7 +11,10 @@ correct_loop_sim3), a stereo system runs `track_stereo` and
 `track_sequence_stereo` (ops/stereo.py), a monocular one
 `track_monocular` and `track_observations_mono` (models/initializer.py),
 the command line (`run_slam.main`) runs a synthetic sequence on the CPU
-with its log, map plot and checkpoint, and nothing of the JAX package
+with its log, map plot and checkpoint, the chunked path runs with its
+frames split over a "frames" mesh, a gloo world of one runs the
+distributed BA and CRF (lc_crf_slam_torch/parallel/), the block-coordinate
+global BA and the "direct" descriptor run, and nothing of the JAX package
 (lc_crf_slam_tpu) was imported. (A
 subprocess, because conftest.py has already imported jax into this
 one.)"""
@@ -173,6 +176,40 @@ with tempfile.TemporaryDirectory() as tmp:
     assert json.loads(printed.getvalue().splitlines()[-1])["frames"] == 4
     assert all(os.path.exists(out(n)) for n in ("t.txt", "kf.txt", "map.png", "ck.npz"))
     assert len(open(out("run.jsonl")).read().splitlines()) == 4
+# the multi-device layer: a "frames" mesh of two CPU devices under the
+# chunked path, and a gloo world of one running the distributed BA and CRF
+import socket
+from lc_crf_slam_torch.models.loopclosing import _map_ba_problem, global_ba_alternating
+from lc_crf_slam_torch.parallel import dist_ba, dist_crf
+from lc_crf_slam_torch.parallel.mesh import edge_sharding, init_distributed, make_mesh
+sharded = SLAMSystem(cam, dataclasses.replace(cfg, loop=LoopConfig()), enable_mapping=True,
+                     enable_crf=True, device="cpu",
+                     mesh=make_mesh(devices=["cpu"] * 2, axis="frames"))
+sharded.track_sequence(np.stack([f.image for f in fr]), np.stack([f.depth_image for f in fr]),
+                       [0.1 * k for k in range(5)], chunk=3)
+assert np.array_equal(sharded.get_trajectory()[1], seq.get_trajectory()[1])
+assert sharded.kf_log == seq.kf_log
+with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    free = sock.getsockname()[1]
+init_distributed(f"localhost:{free}", num_processes=1, process_id=0, device="cpu")
+emesh = make_mesh()
+prob = dist_ba.partition_point_blocks(_map_ba_problem(lcfg, closer.map), emesh.size)
+cam_d, p_d, st = dist_ba.dist_solve_ba_blocks(TUM3, dist_ba.shard_problem(prob, emesh, True),
+                                              emesh, n_iters=2)
+assert torch.isfinite(st.cost) and p_d.shape == prob.p_xyz.shape
+nbr, w_knn = dist_crf.dist_knn_graph(lcfg, edge_sharding(emesh, pts), torch.ones(n_pts,
+                                     dtype=torch.bool), emesh)
+assert nbr.shape[0] == n_pts
+torch.distributed.destroy_process_group()
+assert torch.isfinite(global_ba_alternating(lcfg, TUM3, closer.map, n_rounds=1).p_xyz).all()
+# the "direct" descriptor
+direct = SLAMSystem(cam, cfg.replace(orb=dataclasses.replace(cfg.orb,
+                                                            descriptor_variant="direct")),
+                    enable_mapping=False, enable_crf=False, device="cpu")
+direct.track_rgbd(world.frame(0, render=True).image, world.frame(0, render=True).depth_image,
+                  0.0)
+assert int(direct.map.n_kfs) == 1
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lc_crf_slam_tpu")

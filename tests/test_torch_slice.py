@@ -62,6 +62,34 @@ def test_slice_matches_reference_qvga():
     assert int(port.map.n_kfs) >= 2
 
 
+def test_slice_matches_reference_qvga_direct_descriptor():
+    """8 frames of `track_rgbd` with the "direct" descriptor in both
+    packages, the port making the reference's draws (the audit rescues a
+    solve on this world): poses to 1 mm / 1 mrad, the same keyframes,
+    statuses and rescues."""
+    import dataclasses
+
+    from torch_parity import assert_poses_close, use_reference_draws
+
+    cfg = SLICE_CFG.replace(orb=dataclasses.replace(SLICE_CFG.orb,
+                                                    descriptor_variant="direct"))
+    world = RefWorld(cam=CAM_REF, n_frames=8, n_static=500, n_dynamic=0, seed=5)
+    ref = RefSystem(CAM_REF, cfg, enable_mapping=False, enable_crf=False)
+    port = SLAMSystem(CAM, cfg, enable_mapping=False, enable_crf=False, device="cpu")
+    use_reference_draws(port)
+    for k in range(8):
+        gray, depth = render(world, k)
+        ref.track_rgbd(gray, depth, k / 30.0)
+        port.track_rgbd(gray, depth, k / 30.0)
+    ref.flush_stats()
+    port.flush_stats()
+    assert_poses_close(ref.get_trajectory()[1], port.get_trajectory()[1],
+                       POS_TOL_M, ROT_TOL_RAD)
+    for key in ("status", "need_kf", "rescued"):
+        assert [s.get(key) for s in ref.stats] == [s.get(key) for s in port.stats], key
+    assert int(ref.map.n_kfs) == int(port.map.n_kfs) >= 2
+
+
 @pytest.mark.slow
 def test_slice_matches_reference_full_size():
     """The chip_smoke world: TUM3 640x480, 31 frames, default capacities
@@ -99,14 +127,16 @@ def test_cuda_device_required_by_default():
 @pytest.mark.parametrize("what", ["mapping", "crf", "loop", "direct", "distortion",
                                   "fix_scale"])
 def test_unported_options_raise(what):
-    """What the port does not run raises by name: the "direct" descriptor.
-    What used to raise and is ported now runs: mapping's loop-closing fuse
-    (`fuse_duplicates(loop_mode=True)`, here on an empty map); a ready
-    loop candidate, which a system with loop closing on (with the CRF and
-    mapping on, with both off, and with the monocular Sim(3) loop,
-    `loop.fix_scale=False`) verifies and, on an empty map, rejects; and a
-    camera with distortion terms, whose keypoints the first frame's
-    keyframe holds undistorted as the reference's front-end makes them."""
+    """What used to raise by name and is ported now runs: mapping's
+    loop-closing fuse (`fuse_duplicates(loop_mode=True)`, here on an empty
+    map); a ready loop candidate, which a system with loop closing on
+    (with the CRF and mapping on, with both off, and with the monocular
+    Sim(3) loop, `loop.fix_scale=False`) verifies and, on an empty map,
+    rejects; a camera with distortion terms, whose keypoints the first
+    frame's keyframe holds undistorted as the reference's front-end makes
+    them; and the "direct" descriptor, whose first keyframe holds the
+    reference front-end's keypoints and, but for angles summed in another
+    order, its descriptors."""
     if what == "mapping":
         from lc_crf_slam_torch.models.mapping import fuse_duplicates
         from lc_crf_slam_torch.models.mapstate import empty_map
@@ -120,7 +150,26 @@ def test_unported_options_raise(what):
     cam = CAM
     kw = dict(enable_mapping=what == "crf", enable_crf=what == "crf")
     if what == "direct":
-        cfg = cfg.replace(orb=config.ORBConfig(descriptor_variant="direct"))
+        import dataclasses
+
+        import jax
+        from lc_crf_slam_tpu.models.frame import build_frame as ref_build_frame
+        from lc_crf_slam_torch._ops import popcount32, u32_to_i32
+
+        orb = dataclasses.replace(SLICE_CFG.orb, descriptor_variant="direct")
+        gray, depth = render(RefWorld(cam=CAM_REF, n_frames=6, n_static=500,
+                                      n_dynamic=0, seed=5), 2)
+        ref = jax.jit(ref_build_frame, static_argnums=(0, 1))(
+            CAM_REF, SLICE_CFG.replace(orb=orb), gray, depth)
+        slam = SLAMSystem(cam, cfg.replace(orb=orb), device="cpu", **kw)
+        slam.track_rgbd(gray, depth, 0.0)
+        valid = slam.map.kf_valid[0].numpy()
+        np.testing.assert_array_equal(np.asarray(ref.valid), valid)
+        np.testing.assert_array_equal(np.asarray(ref.uv), slam.map.kf_uv[0].numpy())
+        ham = popcount32(torch.from_numpy(u32_to_i32(np.asarray(ref.desc)))
+                         ^ slam.map.kf_desc[0]).sum(-1).numpy()[valid]
+        assert np.mean(ham == 0) >= 0.99 and ham.max() <= 2, (np.mean(ham == 0), ham.max())
+        return
     if what == "distortion":
         import jax
         from lc_crf_slam_tpu.geometry.camera import Pinhole as RefPinhole
@@ -152,6 +201,3 @@ def test_unported_options_raise(what):
             slam._try_close_loop(pre=(kf, True, cands, groups))
         assert slam.n_verify_loops == 1 and slam.loop_log == []
         assert slam._gba_pending is None and [s for _, s in slam._consistent_groups] == [3]
-        return
-    with pytest.raises(NotImplementedError, match="descriptor_variant"):
-        SLAMSystem(cam, cfg, device="cpu", **kw)
