@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and the torch build.
-2. Builds both FAST CUDA kernels from lc_crf_slam_torch/csrc/ (one nvcc
-   process per source, started together).
-3. Holds each kernel against its plain PyTorch version and times both
-   with CUDA events:
+2. Builds the CUDA kernels from lc_crf_slam_torch/csrc/ (both FAST
+   kernels and the segment sum; one nvcc process per source, started
+   together).
+3. Holds each FAST kernel against its plain PyTorch version and times
+   both with CUDA events (the segment sum: step 16):
    - `fast_nms_dual` (both NMS'd score maps of one level): bitwise on the
      8 pyramid levels of a rendered TUM3 frame and on two random images
      (200x300, not a multiple of the tile; 256x256);
@@ -16,7 +17,8 @@
      B=8 (the command line's chunk), B=15 (a chunk of rendered frames) and
      B=30 (a stereo chunk: 15 left and 15 right eyes).
 4. Tracking phase: SLAMSystem.track_rgbd with mapping and the CRF off on
-   31 rendered 640x480 frames of a 600-point static world, default map
+   the first 16 rendered 640x480 frames of a 600-point static world
+   (31 frames long), default map
    capacities (32768 points, 320 keyframes, 1024 features). Checks one
    fused FAST launch per frame, no lost frame, keyframes made, ATE < 1 cm.
 5. Dynamic phase: the per-frame dynamic pipeline (mapping and the CRF on,
@@ -24,7 +26,8 @@
    mover crossing a 1400-point static scene), frames 0-30. Checks one
    fused launch per frame, no frame lost, >= 2 keyframes, one mapping_step
    per keyframe, one crf_step per frame after the first, ATE < 2 cm, and
-   1 host sync on a non-keyframe frame (torch's sync debug mode).
+   1 host sync on a non-keyframe frame (torch's sync debug mode). The
+   phase runs twice (step 20).
 6. Sequence phase: the chunked throughput path on the same frames with the
    default SLAMConfig (loop detection on):
    `SLAMSystem.track_sequence(grays, depths, timestamps, chunk=15)`.
@@ -39,25 +42,31 @@
    revisit must close a loop: checks >= 1 entry in `loop_log`, finite
    poses, >= 1 global-BA slice run and none pending after
    `get_trajectory()`, every live point's observation count equal to the
-   recount of the observation table, ATE < 0.35 m, the keyframes'
-   ATE after the closure no worse than 1.1 x the same keyframes' just
-   before the first `correct_loop`, 1 + chunks fused launches, and at
-   most frames + 1 host syncs per chunk plus one per verified candidate
-   (and three per relocalisation attempt). Lost frames: none before the
-   first closure, and tracking is back by the end. A closure re-anchors
-   the tracker on its reference keyframe's pose with zero velocity, as
-   the reference does; inside a chunk that keyframe lies a few frames
-   (~10 degrees of this pan) back, the next chunk loses track, and
-   relocalisation recovers it at a chunk boundary (the reference loses
-   the same chunk: tests/test_torch_loop_close.py, slow). Those frames
-   are counted and printed, not hidden.
+   recount of the observation table, the keyframes' ATE right after the
+   first `correct_loop` no worse than 1.1 x the same keyframes' just
+   before it, 1 + chunks (+ 1 per relocalisation attempt) fused launches,
+   and at most frames + 1 host syncs per chunk plus one per verified
+   candidate (and three per relocalisation attempt). A closure
+   re-anchors the tracker on its reference keyframe's pose with zero
+   velocity, as the reference does (tests/test_torch_loop_close.py holds
+   the port to it). Inside a chunk that keyframe lies frames behind the
+   tracker, so the frames after a closure may go astray and lose track
+   until relocalisation at a chunk boundary; the reference's own
+   chunked test loses the chunk after its closure. So the gates are the
+   reference's behaviour: no frame lost before the first closure, ATE <
+   0.35 m (the reference's bar for this world) over the frames up to the
+   end of the closing chunk, tracking back by the end of the run. The
+   ATE over all frames, the lost frames and the keyframes' ATE after each
+   global-BA slice and at the end are printed (ROADMAP.md, queue 3).
    Prints, each line beside the card's name and power limit: ms/frame,
    the ms of every `verify_loop`, `correct_loop`, `global_ba` slice and
    group-wide `search_and_fuse` (a synchronize on both sides), `loop_log`,
    keyframes, both ATEs and peak memory.
    Each phase sets the wrappers' launch counts to 0 just before it drives
    its path and reads them just after: the map kernel is off every path
-   and must count 0 there.
+   and must count 0 there; the segment sum must count at least 1 on every
+   path that runs local BA or a pose graph, and 0 on the two that run
+   neither (tracking, direct descriptor).
 8. Stereo phase: `SLAMSystem.track_stereo` with the default SLAMConfig on
    tests/test_mono_stereo_e2e.py's stereo world (24 TUM3 frames, 900
    points, the right eye rendered one baseline bf / fx along camera x).
@@ -120,22 +129,73 @@
    "frames" mesh of two shards (the card listed twice, or every visible
    card when there are two or more), chunk 15: each shard builds its
    frames (one fused launch a shard) and runs its forward flow; beside
-   it the same frames with `mesh=None`, both with torch's deterministic
-   algorithms (local BA's float atomics make two runs of one path drift
-   apart). Checks the same keyframes, camera centres within 1e-4 m,
-   fused launches 1 + shards x chunks, at most frames + 1 host syncs a
-   chunk;
+   it the same frames with `mesh=None`, both with the default
+   algorithms. Checks poses bitwise equal to each other and to the
+   sequence phase's, the same keyframes, fused launches 1 + shards x
+   chunks, at most frames + 1 host syncs a chunk;
    (c) on the loop phase's final map at full capacity (320 keyframes,
    32768 points), `dist_solve_ba` and `dist_solve_ba_blocks` against
-   `solve_ba`, 10 iterations each, timed with the default algorithms
-   and compared with deterministic ones: live keyframes' translations
-   within 1e-4 m, live points within 1e-3;
+   `solve_ba`, 10 iterations each, timed and compared with the default
+   algorithms: cameras and points bitwise equal (one rank sums the same
+   edges in the same order);
    (d) on that map's CRF tracks, `dist_knn_graph` + `dist_mean_field`
    against `knn_graph` + `mean_field`: neighbours equal, weights and
    q_dyn within 1e-6.
    Prints each stage's ms and the phase's peak memory beside the card's
    name and power limit.
-16. Prints the kernel report as one JSON line (`launches` = the paths'
+16. Segment-sum kernel (`csrc/segment_sum.cu`, run after the loop
+   phase): `segment_sum` on the card against `segment_sum_plain`
+   (`index_add_`) on CPU copies of the same inputs, bitwise, at local
+   BA's Hcc (E, 6, 6), Hpp (E, 3, 3) and W (E, 6, 3) sums over the loop
+   phase's final map (C = 320 keyframes, P = 32768 points, E = 327680
+   edge slots), the SE3 and Sim(3) pose graphs' block diagonals D (2E,
+   6, 6) and (2E, 7, 7) over that map's essential graph (float32, and
+   float64 7x7), an empty edge list and one target hit by every edge;
+   each timed with CUDA events beside `index_add_` with the default
+   algorithms (float atomics) and with deterministic ones, and its plan.
+17. Per-frame loop phase: the loop phase's 130 frames through
+   `track_rgbd`, default SLAMConfig, mapping and the CRF on. The
+   reference test's gates (tests/test_loopclosure_render_e2e.py:93-97):
+   >= 1 loop, the first one's keyframe inside `kf_log`, ATE < 0.10 m, 0
+   lost frames, >= 20 keyframes. And: exactly one `global_ba` slice on
+   each frame while the budget is pending (the closing frame included)
+   and none on the others, none pending after `get_trajectory()`, every
+   live point's `p_n_obs` equal to the recount, the keyframes' ATE right
+   after `correct_loop` <= 1.1 x just before it; the map handed to the
+   first global-BA slice equal to BA_MAP_FILE (to 1e-5), and the
+   keyframes' ATE after each slice and at the end <= 1.1 x the
+   reference's global BA on that map (it raises their ATE on this world,
+   tests/test_torch_loop_close.py::test_global_ba_on_the_cards_loop_map),
+   1 host sync on every
+   non-keyframe frame from the 4th on with no budget pending, one fused
+   launch a frame. Prints the ms of the closing frame and of each
+   `verify_loop`, `correct_loop`, `global_ba` slice and `search_and_fuse`.
+18. Revisit-with-a-mover phase: tests/test_loopclosure_render_e2e.py's
+   `_run(billboard=True)` (:32-63): a QVGA sweep over 1600 points, seed
+   3, a billboard mover in the start sector, 96 frames through
+   `track_rgbd`, `min_total_matches=25`, the reverse neighbour fuse off,
+   default capacities. The reference test's gates (:99-144): a loop, or
+   early and late keyframes reconnected through covisibility (>= 12
+   shared points); ATE < 0.10 m; <= 8 lost frames; judged mover points
+   <= 8% and all mover points <= 20% of the live points; >= 55 live
+   points. One fused launch a frame.
+19. Chunk-boundary relocalisation phase: the world of
+   tests/test_torch_sequence.py::test_blackout_relocalises_at_the_chunk_boundary
+   (a QVGA sweep, frames 0-35, two black frames, frames 0-7) through
+   `track_sequence(chunk=4)` with `max_frames_between_kf=4`. Checks a
+   `chunk_lost` and a `chunk_reloc` event, lost frames only from frame
+   36 to the next chunk boundary (40), status 1 at the end, at most
+   frames + 1 host syncs a chunk plus 3 per relocalisation attempt, the
+   final camera within 0.06 m of the revisited frame's ground truth
+   (tests/test_tracking_e2e.py:196-204), 1 + chunks fused launches.
+20. Repeatability, with the default algorithms everywhere: the dynamic
+   phase runs twice and both runs must give bitwise equal poses and the
+   same keyframes; the sequence phase and the distributed phase's two
+   runs must give bitwise equal poses and the same keyframes (step 15).
+   Every phase's trajectory (the float64 Twc of `get_trajectory()`) is
+   hashed (sha256, the first 16 hex digits) and printed on one line, so
+   that two calls can be compared.
+21. Prints the kernel report as one JSON line (`launches` = the paths'
    own, the kernel checks' launches apart), the card line again, and
    last `{"ok": true, "device": {...}}`.
 
@@ -146,6 +206,8 @@ device the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -162,14 +224,32 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-N_FRAMES = 31
+N_FRAMES = 31             # the tracking world's length
+TRACK_FRAMES = 16         # the tracking phase drives its first 16 frames
 ATE_BAR_M = 0.01
 DYN_FRAMES = 31
 DYN_ATE_BAR_M = 0.02      # the reference's bar for its full pipeline
 SEQ_CHUNK = 15
 LOOP_FRAMES = 130
+# the reference's default-config loop world (tests/test_loop_throughput_e2e.py:34-43)
+LOOP_WORLD = dict(n_static=900, n_dynamic=0, seed=5, trajectory="pan", wall=True,
+                  pan_leadin=0.1, pan_turns=1.2, pan_translation=0.25,
+                  render_depth_noise=0.015)
 LOOP_ATE_BAR_M = 0.35     # the reference's bar for this world in throughput mode
 LOOP_KF_ATE_FACTOR = 1.1  # keyframes' ATE after the closure vs just before it
+# The map the per-frame loop phase holds just before its first global-BA
+# slice, cut to its used slots (`ba_map_arrays`), with the keyframes its
+# ATE is taken over and the reference's keyframe ATE after each global-BA
+# slice on it, computed and checked on the CPU by
+#   JAX_PLATFORMS=cpu python -m pytest \
+#       tests/test_torch_loop_close.py -k global_ba_on_the_cards_loop_map
+# A run whose map differs writes its own to chiprun_out/ (BA_MAP_OUT).
+BA_MAP_FILE = os.path.join(HERE, "tests", "data", "loop_per_frame_ba_map.npz")
+BA_MAP_OUT = os.path.join(HERE, "chiprun_out", "loop_per_frame_ba_map.npz")
+BA_MAP_KF_FIELDS = ("kf_Tcw", "kf_time", "kf_alive", "kf_uv", "kf_ur", "kf_level",
+                    "kf_valid", "kf_obs")
+BA_MAP_P_FIELDS = ("p_xyz", "p_alive")
+BA_MAP_TOL = 1e-5         # metres, the file's map against the run's
 STEREO_FRAMES = 24
 STEREO_ATE_BAR_M = 0.05   # the reference's bar (tests/test_mono_stereo_e2e.py)
 MONO_FRAMES = 30
@@ -194,10 +274,26 @@ LOC_RECOVER = 2           # frames after the last black one to be tracked again
 LOC_ATE_BAR_M = 0.02      # the reference test's bar
 DIRECT_FRAMES = 8         # tracking-world frames with the "direct" descriptor
 DIST_SHARDS = 2           # the frames mesh on one card: the card listed twice
-DIST_CAM_TOL_M = 1e-4     # the reference's bars (tests/test_dist.py)
-DIST_PT_TOL = 1e-3
-DIST_CRF_TOL = 1e-6
+DIST_CRF_TOL = 1e-6       # the reference's bar (tests/test_dist.py)
 DIST_BA_ITERS = 10        # solve_ba's default
+# tests/test_loopclosure_render_e2e.py's gates, per frame
+PF_LOOP_ATE_BAR_M = 0.10
+PF_LOOP_MIN_KFS = 20
+MOVER_FRAMES = 96
+MOVER_MAX_LOST = 8
+MOVER_JUDGED_SHARE = 0.08     # judged mover points / live points
+MOVER_ALL_SHARE = 0.20        # all mover points / live points
+MOVER_MIN_LIVE = 55
+MOVER_RECONNECT = 12          # early-late covisibility without a loop
+# tests/test_torch_sequence.py::test_blackout_relocalises_at_the_chunk_boundary
+RELOC_FRAMES = list(range(36)) + [-1, -1] + list(range(8))   # -1: black
+RELOC_CHUNK = 4
+RELOC_BLACK_AT = 36
+RELOC_REVISIT = 7         # the world frame the sequence ends on
+RELOC_POS_BAR_M = 0.06    # tests/test_tracking_e2e.py:204
+RELOC_SYNCS = 3           # host syncs a relocalisation attempt may add
+# the paths that run no local BA and no pose graph: no segment sum
+NO_SEGMENT_SUM = ("tracking", "direct_descriptor")
 # The JAX reference on the same 31 frames, measured on the CPU with
 #   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_dynamic_slice.py \
 #       -m slow -k full_size -s
@@ -217,6 +313,35 @@ PEAK_F32_OPS_S = 67e12
 # counted from its plain version's result.
 OPS_COMPASS = 2 + 4 * 2 + 2
 OPS_FULL = 2 + 16 * 8 + 3 + 10
+
+
+def qvga():
+    """The QVGA camera of the reference's rendered end-to-end tests
+    (tests/test_loopclosure_render_e2e.py:27, tests/test_tracking_e2e.py)."""
+    from lc_crf_slam_torch.geometry.camera import Pinhole
+
+    return Pinhole(fx=268.0, fy=270.0, cx=160.0, cy=120.0, width=320, height=240,
+                   bf=20.0)
+
+
+# phase -> hash of its final trajectory (step 20)
+POSE_HASHES = {}
+
+
+def pose_hash(poses) -> str:
+    return hashlib.sha256(np.ascontiguousarray(poses).tobytes()).hexdigest()[:16]
+
+
+# phase -> its seconds, rendering and checks included
+PHASE_S = {}
+
+
+def phase(name, fn, *args):
+    """fn(*args), its wall time kept in PHASE_S[name]."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    return out
 
 
 def card_line() -> str:
@@ -315,8 +440,7 @@ def check_cell_kernel(name, grays, cfg):
         n_corners += int((o[0] > 0).sum())
     B = grays.shape[0]
     ms, host_ms = cuda_ms(fast_cell_best_cuda, *args)
-    plain_ms, _ = cuda_ms(fast_cell_best_plain, *args, batches=3,
-                          reps=2 if B == 1 else 1)
+    plain_ms, _ = cuda_ms(fast_cell_best_plain, *args, batches=1, reps=1)
     n_pixels = pyr.flat.numel()
     b_ms, b_by = bound(4 * n_pixels + 12 * n_cells, n_pixels, n_corners)
     print(f"fast_cells {name} (B={B}, {n_pixels} pixels, {n_cells} cells, "
@@ -346,23 +470,29 @@ def sync_sites(caught) -> list:
             if "synchronizing CUDA operation" in str(w.message)]
 
 
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from lc_crf_slam_torch.ops import fast_kernel, segment_sum
+    fast_kernel.reset_launches()
+    segment_sum.reset_launches()
+
+
 def path_launches():
-    """(fused, map) kernel launches since `fast_kernel.reset_launches()`."""
-    from lc_crf_slam_torch.ops import fast_kernel
-    return fast_kernel.cell_launches, fast_kernel.launches
+    """(fused, map, segment-sum) kernel launches since `reset_counts()`."""
+    from lc_crf_slam_torch.ops import fast_kernel, segment_sum
+    return fast_kernel.cell_launches, fast_kernel.launches, segment_sum.launches
 
 
 def drive(slam, frames, counted, track=None, sites=None):
     """Every frame through `track(frame)` (default `slam.track_rgbd`), each
     timed to a synchronize: (ms per frame, {frame: host syncs} for the
-    frames in `counted`, counted in torch's sync debug mode, (fused, map)
-    kernel launches of the path, peak device MiB). A dict `sites` fills
-    with each counted frame's `sync_sites`."""
+    frames in `counted`, counted in torch's sync debug mode, (fused, map,
+    segment-sum) kernel launches of the path, peak device MiB). A dict
+    `sites` fills with each counted frame's `sync_sites`."""
     track = track or (lambda f: slam.track_rgbd(f.image, f.depth_image, f.timestamp))
-    from lc_crf_slam_torch.ops import fast_kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
+    reset_counts()
     frame_ms, syncs = [], {}
     for k, f in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
@@ -382,17 +512,18 @@ def drive(slam, frames, counted, track=None, sites=None):
 
 
 def check_launches(phase, got, n_fused):
-    """`got` = (fused, map) launches of a phase's path: the fused kernel as
-    often as the path asks for it, the map kernel never."""
-    if got != (n_fused, 0):
+    """`got` = (fused, map, segment-sum) launches of a phase's path: the
+    fused kernel as often as the path asks for it, the map kernel never
+    (the segment sum is checked over all paths at the end)."""
+    if got[:2] != (n_fused, 0):
         raise AssertionError(
-            f"{phase}: kernel launches (fused, map) = {got}, expected "
+            f"{phase}: kernel launches (fused, map) = {got[:2]}, expected "
             f"({n_fused}, 0)")
 
 
 def tracking_phase(cam, frames, world) -> int:
     """The tracking slice at full width (see the module docstring, step 4);
-    returns the path's fused-kernel launches."""
+    returns the path's kernel launches."""
     from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
 
@@ -406,33 +537,34 @@ def tracking_phase(cam, frames, world) -> int:
     slam.flush_stats()
     ts, poses = slam.get_trajectory()
     gt_t, gt = world.groundtruth()
-    if poses.shape != (N_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
+    if poses.shape != (TRACK_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"bad trajectory: shape {poses.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES["tracking"] = pose_hash(poses)
     statuses = [s.get("status", 1) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
     inliers = [s["n_inliers"] for s in slam.stats if "n_inliers" in s]
     med = statistics.median(frame_ms[3:])
-    print(f"slice: {N_FRAMES} frames, median {med:.2f} ms/frame after the "
+    print(f"slice: {TRACK_FRAMES} frames, median {med:.2f} ms/frame after the "
           f"first 3 ({1e3 / med:.1f} fps), first frame {frame_ms[0]:.1f} ms, "
           f"ATE {ate:.5f} m, keyframes {n_kfs}, mean inliers "
           f"{np.mean(inliers):.1f}, lost frames {statuses.count(2)}, "
-          f"kernel launches (fused, map) {got}, peak memory {peak_mb:.0f} MiB, "
+          f"kernel launches (fused, map, segment sum) {got}, peak memory {peak_mb:.0f} MiB, "
           f"host syncs per frame {list(syncs.values())}")
-    check_launches("tracking phase", got, N_FRAMES)
+    check_launches("tracking phase", got, TRACK_FRAMES)
     if 2 in statuses:
         raise AssertionError(f"tracking lost: statuses {statuses}")
     if n_kfs < 2:
         raise AssertionError(f"only {n_kfs} keyframes")
     if not ate < ATE_BAR_M:
         raise AssertionError(f"ATE {ate} m >= {ATE_BAR_M} m")
-    return got[0]
+    return got
 
 
-def dynamic_phase(cam, frames, world):
+def dynamic_phase(cam, frames, world, name="dynamic"):
     """The per-frame dynamic pipeline at full width (see the module
-    docstring, step 5); returns (the path's fused-kernel launches, its
-    mean ms/frame after the first frame)."""
+    docstring, step 5); returns (the path's kernel launches, its mean
+    ms/frame after the first frame, its trajectory, its keyframe log)."""
     from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
 
@@ -448,6 +580,7 @@ def dynamic_phase(cam, frames, world):
     if poses.shape != (DYN_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"dynamic phase: bad trajectory, shape {poses.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES[name] = pose_hash(poses)
     statuses = [s.get("status", 1) for s in slam.stats]
     is_kf = [bool(s.get("need_kf")) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
@@ -457,20 +590,20 @@ def dynamic_phase(cam, frames, world):
     other_at = [k for k in range(3, DYN_FRAMES) if not is_kf[k]]
     last = slam.stats[-1]
     med = statistics.median(frame_ms[3:])
-    print(f"dynamic: {DYN_FRAMES} frames, median {med:.2f} "
+    print(f"{name} [{card_line()}]: {DYN_FRAMES} frames, median {med:.2f} "
           f"ms/frame after the first 3 (keyframe frames {statistics.median(kf_ms):.2f} "
           f"over {len(kf_ms)}, other frames {statistics.median(other_ms):.2f} over "
           f"{len(other_ms)}), mean of frames 1-{DYN_FRAMES - 1} {np.mean(frame_ms[1:]):.2f}, "
           f"first frame {frame_ms[0]:.1f} ms")
-    print(f"dynamic: ATE {ate:.5f} m (JAX reference on the same frames, CPU: "
+    print(f"{name}: ATE {ate:.5f} m (JAX reference on the same frames, CPU: "
           f"{REF_DYN_ATE_M:.5f} m), keyframes {n_kfs}, lost frames "
           f"{statuses.count(2)}, mapping_step calls {slam.n_mapping_steps}, "
-          f"crf_step calls {slam.n_crf_steps}, kernel launches (fused, map) {got}, "
+          f"crf_step calls {slam.n_crf_steps}, kernel launches (fused, map, segment sum) {got}, "
           f"peak memory {peak_mb:.0f} MiB")
-    print(f"dynamic: host syncs on keyframe frame {kf_at[0]}: {syncs[kf_at[0]]}, on "
+    print(f"{name}: host syncs on keyframe frame {kf_at[0]}: {syncs[kf_at[0]]}, on "
           f"non-keyframe frame {other_at[0]}: {syncs[other_at[0]]}; per frame "
           f"from the 4th {list(syncs.values())}")
-    print(f"dynamic: last frame n_dynamic {last['n_dynamic']}, n_tracks "
+    print(f"{name}: last frame n_dynamic {last['n_dynamic']}, n_tracks "
           f"{last['crf_tracks']}")
     check_launches("dynamic phase", got, DYN_FRAMES)
     if 2 in statuses:
@@ -489,7 +622,7 @@ def dynamic_phase(cam, frames, world):
                              f"non-keyframe frame {other_at[0]}, expected 1")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"dynamic phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return got[0], float(np.mean(frame_ms[1:]))
+    return got, float(np.mean(frame_ms[1:])), poses, slam.kf_log
 
 
 def count_chunks(slam) -> list:
@@ -500,10 +633,18 @@ def count_chunks(slam) -> list:
     chunk."""
     chunks = []
     inner = slam._track_chunk
+    # one sampler per relocalisation attempt: count the attempts
+    attempts = [0]
+    reloc_sampler = slam._reloc_sampler
+
+    def counted_sampler():
+        attempts[0] += 1
+        return reloc_sampler()
+
+    slam._reloc_sampler = counted_sampler
 
     def rare():
-        return (slam.n_verify_loops, len(slam.loop_log),
-                sum(s.get("event") == "chunk_lost" for s in slam.stats))
+        return slam.n_verify_loops, len(slam.loop_log), attempts[0]
 
     def counted_chunk(g, d, t, *rest):
         torch.cuda.synchronize()
@@ -531,10 +672,9 @@ def count_chunks(slam) -> list:
 
 def sequence_phase(cam, frames, world, dyn_ms: float):
     """The chunked throughput path at full width (see the module
-    docstring, step 6); returns (the path's fused-kernel launches, its
+    docstring, step 6); returns (the path's kernel launches, its
     ms/frame, its poses, its keyframe log)."""
     from lc_crf_slam_torch.config import SLAMConfig
-    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.models.system import SLAMSystem
 
     cfg = SLAMConfig()          # loop detection on
@@ -548,7 +688,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
     chunks = count_chunks(slam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
+    reset_counts()
     poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
     torch.cuda.synchronize()
     got = path_launches()
@@ -564,6 +704,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
         raise AssertionError(f"sequence phase: bad trajectory, shapes {poses.shape} "
                              f"{poses_tcw.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES["sequence"] = pose_hash(poses)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     n_kfs = int(slam.map.n_kfs)
@@ -580,7 +721,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
     print(f"sequence: ATE {ate:.5f} m, keyframes {n_kfs} ({in_chunk_kfs} in chunks), "
           f"lost frames {n_lost}, mapping_step calls {slam.n_mapping_steps}, "
           f"detect_loop calls {slam.n_detect_loops}, crf_step calls "
-          f"{slam.n_crf_steps}, kernel launches (fused, map) {got}, host syncs per "
+          f"{slam.n_crf_steps}, kernel launches (fused, map, segment sum) {got}, host syncs per "
           f"chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames, "
           f"peak memory {peak_mb:.0f} MiB")
     check_launches("sequence phase", got, 1 + n_chunks)
@@ -603,7 +744,7 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
                                  f"of {n} frames, at most {n + 1} allowed")
     if not ate < DYN_ATE_BAR_M:
         raise AssertionError(f"sequence phase: ATE {ate} m >= {DYN_ATE_BAR_M} m")
-    return got[0], ms_frame, poses_tcw, slam.kf_log
+    return got, ms_frame, poses_tcw, slam.kf_log
 
 
 def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
@@ -613,37 +754,34 @@ def keyframe_ate(kf_Tcw, kf_time, which, gt_times, gt_twc) -> float:
     return ate_rmse(kf_time[which], Twc, gt_times, gt_twc)
 
 
-def loop_phase(cam):
-    """Loop closing at full width (see the module docstring, step 7);
-    returns (the path's fused-kernel launches, its final map copied to the
-    host, the tracker's frame index)."""
-    from lc_crf_slam_torch.config import SLAMConfig
-    from lc_crf_slam_torch.models import system
-    from lc_crf_slam_torch.ops import fast_kernel
+def loop_world(cam):
+    """The reference's default-config loop world (a 1.2-turn pan over a
+    textured wall with depth noise, tests/test_loop_throughput_e2e.py:
+    34-43) at the camera's size: (world, its LOOP_FRAMES rendered frames)."""
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 
     t0 = time.perf_counter()
-    world = SyntheticWorld(cam=cam, n_frames=LOOP_FRAMES, n_static=900, n_dynamic=0,
-                           seed=5, trajectory="pan", wall=True, pan_leadin=0.1,
-                           pan_turns=1.2, pan_translation=0.25,
-                           render_depth_noise=0.015)
+    world = SyntheticWorld(cam=cam, n_frames=LOOP_FRAMES, **LOOP_WORLD)
     frames = [world.frame(k, render=True) for k in range(LOOP_FRAMES)]
-    grays = np.stack([f.image for f in frames]).astype(np.float32)
-    depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
-    stamps = [f.timestamp for f in frames]
-    gt_times, gt = world.groundtruth()
-    card = card_line()
     print(f"loop: rendered {LOOP_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    return world, frames
 
-    slam = system.SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
-                             device="cuda")
-    slam.seq_phases = {}
 
-    # every closure stage timed to a synchronize on both sides; the timers'
-    # own device reads stay out of the chunks' sync counts
+@contextlib.contextmanager
+def timed_stages():
+    """Inside the block every closure stage of the system module
+    (`verify_loop`, `correct_loop`, `global_ba`, `search_and_fuse`) runs
+    timed to a synchronize on both sides, outside torch's sync debug mode
+    (the timers' own device reads stay out of the sync counts). Yields
+    ({stage: [ms]}, {} that fills with the keyframes just before the first
+    `correct_loop`: Tcw, time, alive, their poses after it and after each
+    `global_ba` slice of its budget: "after" [(stage, Tcw)], and the map
+    the first slice is handed: "ba_map" (`ba_map_arrays`))."""
+    from lc_crf_slam_torch.models import system
+
     stage_ms = {"verify_loop": [], "correct_loop": [], "global_ba": [],
                 "search_and_fuse": []}
-    before = {}     # the keyframes just before the first correct_loop
+    before = {}
 
     def timed(name):
         inner = getattr(system, name)
@@ -657,11 +795,17 @@ def loop_phase(cam):
                 before.update(Tcw=m.kf_Tcw[:n].cpu().numpy(),
                               time=m.kf_time[:n].cpu().numpy(),
                               alive=m.kf_alive[:n].cpu().numpy())
+            if name == "global_ba" and before and "ba_map" not in before:
+                before["ba_map"] = ba_map_arrays(args[2])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = inner(*args)
             torch.cuda.synchronize()
             stage_ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name in ("correct_loop", "global_ba") and before \
+                    and len(before.setdefault("after", [])) < 4:
+                n0 = len(before["alive"])
+                before["after"].append((name, out.kf_Tcw[:n0].cpu().numpy()))
             torch.cuda.set_sync_debug_mode(mode)
             return out
 
@@ -669,20 +813,105 @@ def loop_phase(cam):
         return inner
 
     originals = {name: timed(name) for name in stage_ms}
-    chunks = count_chunks(slam)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
     try:
+        yield stage_ms, before
+    finally:
+        for name, fn in originals.items():
+            setattr(system, name, fn)
+
+
+def stale_obs_counts(m) -> int:
+    """Live points whose observation count differs from the weighted
+    recount of the live keyframes' observation table (a depth-backed entry
+    counts 2)."""
+    kf_alive = m.kf_alive.cpu().numpy()
+    obs = m.kf_obs.cpu().numpy()[kf_alive]
+    valid = m.kf_valid.cpu().numpy()[kf_alive] & (obs >= 0)
+    w = 1 + (m.kf_ur.cpu().numpy()[kf_alive] >= 0).astype(np.int64)
+    P = m.capacity_points
+    recount = np.bincount(obs[valid].ravel(), weights=w[valid].ravel(),
+                          minlength=P)[:P].astype(np.int64)
+    return int((m.p_alive.cpu().numpy() & (m.p_n_obs.cpu().numpy() != recount)).sum())
+
+
+def ba_map_arrays(m) -> dict:
+    """The fields of map `m` that global BA reads, cut to its used
+    keyframe and point slots, as numpy arrays."""
+    nk, n_pts = int(m.n_kfs), int(m.n_points)
+    out = {f: getattr(m, f)[:nk].cpu().numpy() for f in BA_MAP_KF_FIELDS}
+    out.update({f: getattr(m, f)[:n_pts].cpu().numpy() for f in BA_MAP_P_FIELDS})
+    return out
+
+
+def load_ba_map(cfg, path: str = BA_MAP_FILE):
+    """(an empty map of cfg's capacities on the CPU holding the slots of
+    the file written from `ba_map_arrays`, the file's arrays)."""
+    from lc_crf_slam_torch.models.mapstate import empty_map
+
+    z = dict(np.load(path))
+    m = empty_map(cfg, torch.device("cpu"))
+    slots = {}
+    for f in BA_MAP_KF_FIELDS + BA_MAP_P_FIELDS:
+        t = getattr(m, f).clone()
+        t[:len(z[f])] = torch.from_numpy(z[f])
+        slots[f] = t
+    count = lambda f: torch.tensor(len(z[f]), dtype=torch.int32)   # noqa: E731
+    return m._replace(n_kfs=count("kf_Tcw"), n_points=count("p_xyz"), **slots), z
+
+
+def ba_map_diff(a: dict, b) -> float:
+    """The largest difference of two `ba_map_arrays` maps' float fields
+    (inf where a shape or an integer or boolean field differs)."""
+    worst = 0.0
+    for f in BA_MAP_KF_FIELDS + BA_MAP_P_FIELDS:
+        x, y = np.asarray(a[f]), np.asarray(b[f])
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return float("inf")
+        if x.dtype.kind == "f":
+            worst = max(worst, float(np.abs(x - y).max(initial=0.0)))
+        elif not np.array_equal(x, y):
+            return float("inf")
+    return worst
+
+
+def closure_kf_ates(before, m, gt_times, gt):
+    """(keyframes compared, their ATE just before the first correct_loop,
+    now, [ATE after correct_loop and after each global_ba slice]): the
+    keyframes alive then and still alive."""
+    n0 = len(before["alive"])
+    same = before["alive"] & m.kf_alive.cpu().numpy()[:n0]
+    ate = lambda Tcw: keyframe_ate(Tcw, before["time"], same, gt_times, gt)  # noqa: E731
+    return (int(same.sum()), ate(before["Tcw"]), ate(m.kf_Tcw[:n0].cpu().numpy()),
+            [ate(Tcw) for _, Tcw in before.get("after", [])])
+
+
+def loop_phase(cam, world, frames):
+    """Loop closing at full width (see the module docstring, step 7);
+    returns (the path's kernel launches, its final map copied to the
+    host, the tracker's frame index)."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models import system
+
+    grays = np.stack([f.image for f in frames]).astype(np.float32)
+    depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
+    stamps = [f.timestamp for f in frames]
+    gt_times, gt = world.groundtruth()
+    card = card_line()
+
+    slam = system.SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
+                             device="cuda")
+    slam.seq_phases = {}
+    with timed_stages() as (stage_ms, before):
+        chunks = count_chunks(slam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
         torch.cuda.synchronize()
         got = path_launches()
         slices_in_run = slam._gba_slices_run
         slam.flush_stats()
         ts, poses = slam.get_trajectory()       # finishes a pending global BA
-    finally:
-        for name, fn in originals.items():
-            setattr(system, name, fn)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     n_seq = LOOP_FRAMES - 1
@@ -692,6 +921,7 @@ def loop_phase(cam):
         raise AssertionError(f"loop phase: bad trajectory, shapes {poses.shape} "
                              f"{poses_tcw.shape}")
     ate = ate_rmse(ts, poses, gt_times, gt)
+    POSE_HASHES["loop"] = pose_hash(poses)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     m = slam.map
@@ -705,13 +935,14 @@ def loop_phase(cam):
         print(f"loop [{card}]: {name} x{len(ms)}: ms {[round(t, 1) for t in ms]}")
     print(f"loop [{card}]: loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops}, "
           f"global-BA slices {slam._gba_slices_run} ({slices_in_run} inside the run), "
-          f"keyframes {n_kfs}, lost frames {n_lost}, kernel launches (fused, map) "
-          f"{got}, host syncs per chunk {[c[1] for c in chunks]} with "
+          f"keyframes {n_kfs}, lost frames {n_lost}, kernel launches (fused, map, "
+          f"segment sum) {got}, host syncs per chunk {[c[1] for c in chunks]} with "
           f"{[c[3] for c in chunks]} (verified candidates, relocalisation attempts), "
           f"peak memory {peak_mb:.0f} MiB")
     failures = []
     try:
-        check_launches("loop phase", got, 1 + n_chunks)
+        # a relocalisation attempt at a chunk boundary builds its frame
+        check_launches("loop phase", got, 1 + n_chunks + sum(c[3][1] for c in chunks))
     except AssertionError as e:
         failures.append(str(e))
     if not slam.loop_log:
@@ -735,44 +966,35 @@ def loop_phase(cam):
             failures.append(f"{syncs} host syncs in a chunk of {n} frames with "
                             f"{verified} verified candidates and {relocs} "
                             f"relocalisation attempts, at most {allowed} allowed")
-
-    # every live point's observation count equals the weighted recount of
-    # the live keyframes' observation table (a depth-backed entry counts 2)
-    kf_alive = m.kf_alive.cpu().numpy()
-    obs = m.kf_obs.cpu().numpy()[kf_alive]
-    valid = m.kf_valid.cpu().numpy()[kf_alive] & (obs >= 0)
-    w = 1 + (m.kf_ur.cpu().numpy()[kf_alive] >= 0).astype(np.int64)
-    P = m.capacity_points
-    recount = np.bincount(obs[valid].ravel(), weights=w[valid].ravel(),
-                          minlength=P)[:P].astype(np.int64)
-    stale = m.p_alive.cpu().numpy() & (m.p_n_obs.cpu().numpy() != recount)
-    if stale.any():
-        failures.append(f"{int(stale.sum())} live points whose observation count "
-                        f"differs from the recount")
-
-    # the keyframes that were alive just before the first correct_loop and
-    # still are: their ATE then and now
-    n0 = len(before["alive"])
-    same = before["alive"] & kf_alive[:n0]
-    ate_before = keyframe_ate(before["Tcw"], before["time"], same, gt_times, gt)
-    ate_after = keyframe_ate(m.kf_Tcw[:n0].cpu().numpy(), before["time"], same,
-                             gt_times, gt)
-    print(f"loop [{card}]: ATE {ate:.5f} m over {LOOP_FRAMES} frames; the {int(same.sum())} "
+    stale = stale_obs_counts(m)
+    if stale:
+        failures.append(f"{stale} live points whose observation count differs from "
+                        f"the recount")
+    if not before:
+        raise AssertionError("loop phase: " + "; ".join(failures))
+    n_same, ate_before, ate_after, steps = closure_kf_ates(before, m, gt_times, gt)
+    print(f"loop [{card}]: ATE {ate:.5f} m over {LOOP_FRAMES} frames; the {n_same} "
           f"keyframes alive at the first closure: ATE {ate_before:.5f} m just before "
-          f"it, {ate_after:.5f} m at the end; {int(m.p_alive.sum())} live points")
-    if not ate < LOOP_ATE_BAR_M:
-        failures.append(f"ATE {ate} m >= {LOOP_ATE_BAR_M} m")
-    if not ate_after <= LOOP_KF_ATE_FACTOR * ate_before:
-        failures.append(f"keyframe ATE {ate_after} m after the closure > "
+          f"it, {[round(a, 5) for a in steps]} m after correct_loop and each global-BA "
+          f"slice, {ate_after:.5f} m at the end; {int(m.p_alive.sum())} live points")
+    # the reference's bar over the frames the re-anchoring has not touched
+    ate_upto = ate_rmse(ts[:first_closure + 1], poses[:first_closure + 1], gt_times, gt)
+    print(f"loop [{card}]: ATE {ate_upto:.5f} m over frames 0-{first_closure} (up to the "
+          f"end of the closing chunk)")
+    if not ate_upto < LOOP_ATE_BAR_M:
+        failures.append(f"ATE {ate_upto} m over frames 0-{first_closure} >= "
+                        f"{LOOP_ATE_BAR_M} m")
+    if not steps[0] <= LOOP_KF_ATE_FACTOR * ate_before:
+        failures.append(f"keyframe ATE {steps[0]} m after correct_loop > "
                         f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
     if failures:
         raise AssertionError("loop phase: " + "; ".join(failures))
-    return got[0], type(m)(*(t.cpu() for t in m)), int(slam.ts.frame_idx)
+    return got, type(m)(*(t.cpu() for t in m)), int(slam.ts.frame_idx)
 
 
-def stereo_phase(cam) -> int:
+def stereo_phase(cam):
     """`track_stereo` at full width (see the module docstring, step 8);
-    returns the path's fused-kernel launches."""
+    returns the path's kernel launches."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
@@ -792,6 +1014,7 @@ def stereo_phase(cam) -> int:
     if poses.shape != (STEREO_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"stereo phase: bad trajectory, shape {poses.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES["stereo"] = pose_hash(poses)
     statuses = [s.get("status", 1) for s in slam.stats]
     is_kf = [bool(s.get("need_kf")) for s in slam.stats]
     n_kfs = int(slam.map.n_kfs)
@@ -800,7 +1023,7 @@ def stereo_phase(cam) -> int:
           f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3, first "
           f"frame {frame_ms[0]:.1f} ms; ATE {ate:.5f} m, keyframes {n_kfs}, lost frames "
           f"{statuses.count(2)}, mapping_step calls {slam.n_mapping_steps}, kernel "
-          f"launches (fused, map) {got}, peak memory {peak_mb:.0f} MiB, host syncs per "
+          f"launches (fused, map, segment sum) {got}, peak memory {peak_mb:.0f} MiB, host syncs per "
           f"frame from the 4th {list(syncs.values())}")
     check_launches("stereo phase", got, STEREO_FRAMES)
     if 2 in statuses:
@@ -812,15 +1035,14 @@ def stereo_phase(cam) -> int:
     if syncs[other_at[0]] != 1:
         raise AssertionError(f"stereo phase: {syncs[other_at[0]]} host syncs on "
                              f"non-keyframe frame {other_at[0]}, expected 1")
-    return got[0]
+    return got
 
 
-def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
+def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float):
     """`track_sequence_stereo` at full width (see the module docstring,
-    step 9); returns the path's fused-kernel launches."""
+    step 9); returns the path's kernel launches."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.ops import fast_kernel
 
     slam = SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
                       device="cuda")
@@ -829,7 +1051,7 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
     chunks = count_chunks(slam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fast_kernel.reset_launches()
+    reset_counts()
     poses_tcw = slam.track_sequence_stereo(lefts, np.stack(rights).astype(np.float32),
                                            [f.timestamp for f in frames], chunk=SEQ_CHUNK)
     torch.cuda.synchronize()
@@ -845,6 +1067,7 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
         raise AssertionError(f"stereo sequence phase: bad trajectory, shapes "
                              f"{poses.shape} {poses_tcw.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES["stereo_sequence"] = pose_hash(poses)
     n_lost = sum(s.get("lost_frames", 0) for s in slam.stats
                  if s.get("event") == "chunk_lost")
     n_kfs = int(slam.map.n_kfs)
@@ -857,7 +1080,7 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
         f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items()))
     print(f"stereo sequence: ATE {ate:.5f} m, keyframes {n_kfs}, lost frames {n_lost}, "
           f"mapping_step calls {slam.n_mapping_steps}, crf_step calls "
-          f"{slam.n_crf_steps}, kernel launches (fused, map) {got}, host syncs per "
+          f"{slam.n_crf_steps}, kernel launches (fused, map, segment sum) {got}, host syncs per "
           f"chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames, peak "
           f"memory {peak_mb:.0f} MiB")
     check_launches("stereo sequence phase", got, 1 + n_chunks)
@@ -873,12 +1096,12 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float) -> int:
     if not ate < STEREO_ATE_BAR_M:
         raise AssertionError(f"stereo sequence phase: ATE {ate} m >= "
                              f"{STEREO_ATE_BAR_M} m")
-    return got[0]
+    return got
 
 
 def mono_phase(cam):
     """`track_monocular` at full width (see the module docstring, step
-    10); returns (the path's fused-kernel launches, the system)."""
+    10); returns (the path's kernel launches, the system)."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
@@ -895,6 +1118,7 @@ def mono_phase(cam):
     events = [s.get("event", "track") for s in slam.stats]
     init_at = events.index("mono_init") if "mono_init" in events else None
     ts, poses = slam.get_trajectory()
+    POSE_HASHES["mono"] = pose_hash(poses)
     gt_times, gt = world.groundtruth()
     after = np.asarray([int(r) >= 0 for _, _, r in slam.trajectory])
     n_kfs = int(slam.map.n_kfs)
@@ -913,7 +1137,7 @@ def mono_phase(cam):
           f"10 frames; keyframes {n_kfs}, live points {n_points}, lost frames after the "
           f"initialisation {lost_after}, scale-aligned ATE over the {int(after.sum())} "
           f"frames from it {ate if ate is None else round(ate, 5)} m, kernel launches "
-          f"(fused, map) {got}, peak memory {peak_mb:.0f} MiB; host syncs on the frames "
+          f"(fused, map, segment sum) {got}, peak memory {peak_mb:.0f} MiB; host syncs on the frames "
           f"up to the initialisation {before_init}, after it "
           f"{[syncs[k] for k in tracked]}")
     check_launches("mono phase", got, MONO_FRAMES)
@@ -933,12 +1157,13 @@ def mono_phase(cam):
     if other_at and syncs[other_at[0]] != 1:
         raise AssertionError(f"mono phase: {syncs[other_at[0]]} host syncs on "
                              f"non-keyframe frame {other_at[0]}, expected 1")
-    return got[0], slam
+    return got, slam
 
 
-def sim3_closure_stage(slam) -> None:
+def sim3_closure_stage(slam):
     """`correct_loop_sim3` handed a closure on the monocular map, on the
-    card and on a CPU copy (see the module docstring, step 11)."""
+    card and on a CPU copy (see the module docstring, step 11); returns the
+    kernel launches of the two calls on the card."""
     from lc_crf_slam_torch.geometry.se3 import exp_se3
     from lc_crf_slam_torch.models.loopclosing import correct_loop_sim3
     from lc_crf_slam_torch.models.mapstate import MapState
@@ -950,6 +1175,8 @@ def sim3_closure_stage(slam) -> None:
             T_corr, torch.tensor(SIM3_S_CORR))
     cuda_args = tuple(a.cuda() for a in args)
     ms, syncs = [], []
+    torch.cuda.synchronize()
+    reset_counts()
     for _ in range(2):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -963,6 +1190,8 @@ def sim3_closure_stage(slam) -> None:
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         syncs.append(count_syncs(caught))
+    got = path_launches()
+    POSE_HASHES["sim3_closure"] = pose_hash(out.kf_Tcw.cpu().numpy())
     m_cpu = MapState(*(x.cpu() for x in m))
     t0 = time.perf_counter()
     ref = correct_loop_sim3(slam.cfg, slam.cam, m_cpu, *args)
@@ -975,7 +1204,8 @@ def sim3_closure_stage(slam) -> None:
     print(f"sim3 closure [{card_line()}]: correct_loop_sim3 keyframe {kf} -> 0 on "
           f"{int(m.n_kfs)} keyframes and {int(m.p_alive.sum())} live points, s_corr "
           f"{SIM3_S_CORR}: card {ms[0]:.1f} ms then {ms[1]:.1f} ms, CPU {cpu_ms:.1f} ms; "
-          f"host syncs {syncs}; card vs CPU: kf_Tcw max abs diff {d_kf:.2e}, live "
+          f"host syncs {syncs}, kernel launches (fused, map, segment sum) {got}; card "
+          f"vs CPU: kf_Tcw max abs diff {d_kf:.2e}, live "
           f"p_xyz max abs diff {d_p:.2e} m, live points {int(alive.sum())} vs "
           f"{int(alive_cpu.sum())}; the closing keyframe moved {moved:.4f}")
     if syncs != [0, 0]:
@@ -985,6 +1215,7 @@ def sim3_closure_stage(slam) -> None:
                              f"live points {int(alive.sum())} vs {int(alive_cpu.sum())}")
     if not (np.isfinite(d_kf) and moved > 0):
         raise AssertionError("sim3 closure: the closing keyframe did not move")
+    return got
 
 
 def shift_sequence(d: str, offset: float) -> None:
@@ -1000,14 +1231,14 @@ def shift_sequence(d: str, offset: float) -> None:
 
 def run_cli(argv):
     """`run_slam.main(argv)` in this process, timed to a synchronize:
-    (exit code, summary dict, its standard error, (fused, map) launches,
+    (exit code, summary dict, its standard error, (fused, map, segment-sum)
+    launches,
     seconds)."""
     from lc_crf_slam_torch import run_slam
-    from lc_crf_slam_torch.ops import fast_kernel
 
     out, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
-    fast_kernel.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = run_slam.main(argv)
@@ -1019,11 +1250,10 @@ def run_cli(argv):
 
 def tum_phase(cam, world, frames) -> dict:
     """The command line on a TUM-format sequence (see the module
-    docstring, step 12); returns the fused-kernel launches of its three
+    docstring, step 12); returns the kernel launches of its four
     paths."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.utils.checkpoint import load_checkpoint
     from lc_crf_slam_torch.utils.io_tum import (load_groundtruth, poses_from_tum,
                                                 read_file_list, read_trajectory_tum)
@@ -1054,7 +1284,7 @@ def tum_phase(cam, world, frames) -> dict:
             print(f"tum {name} [{card}]: summary {summary}; ATE {ate:.5f} m "
                   f"(evaluate_ate against groundtruth.txt); {len(kf_t)} keyframes, their "
                   f"times at most {kf_off:.2e} s from a frame time; {len(records)} JSONL "
-                  f"lines; kernel launches (fused, map) {got}")
+                  f"lines; kernel launches (fused, map, segment sum) {got}")
             if summary["frames"] != TUM_FRAMES or summary["lost_frames"] != 0:
                 failures.append(f"{name}: frames {summary['frames']}, lost "
                                 f"{summary['lost_frames']}")
@@ -1064,8 +1294,8 @@ def tum_phase(cam, world, frames) -> dict:
                 failures.append(f"{name}: keyframe times up to {kf_off} s off a frame time")
             if len(records) != n_records:
                 failures.append(f"{name}: {len(records)} JSONL lines, {n_records} records")
-            if got != (n_fused, 0):
-                failures.append(f"{name}: kernel launches (fused, map) {got}, expected "
+            if got[:2] != (n_fused, 0):
+                failures.append(f"{name}: kernel launches (fused, map, segment sum) {got}, expected "
                                 f"({n_fused}, 0)")
 
         # per frame, with the log, a checkpoint and the stage table
@@ -1080,7 +1310,7 @@ def tum_phase(cam, world, frames) -> dict:
         # one record a frame
         check_run("per frame", summary, out["traj.txt"], out["kf.txt"], out["run.jsonl"],
                   TUM_FRAMES, got, TUM_FRAMES)
-        launches["tum"] = got[0]
+        launches["tum"] = got
 
         # chunked
         rc, summary, err, got, sec = run_cli([
@@ -1096,7 +1326,7 @@ def tum_phase(cam, world, frames) -> dict:
         # the first frame's record, and a record for each chunk event
         check_run("chunked", summary, out["traj_tp.txt"], out["kf_tp.txt"],
                   out["run_tp.jsonl"], 1, got, 1 + n_chunks)
-        launches["tum_throughput"] = got[0]
+        launches["tum_throughput"] = got
 
         # chunked under torch.profiler: the trace must name the fused kernel
         rc, summary, err, got, sec = run_cli([
@@ -1110,12 +1340,12 @@ def tum_phase(cam, world, frames) -> dict:
         print(f"tum profiled [{card}]: exit {rc}, {sec:.2f} s for {summary['frames']} "
               f"frames (the first and one chunk) under torch.profiler, trace "
               f"{trace_mb:.1f} MiB naming fast_cell_best_kernel: {named}, kernel "
-              f"launches (fused, map) {got}")
+              f"launches (fused, map, segment sum) {got}")
         if rc != 0 or summary["frames"] != TUM_PROFILE_FRAMES or not named \
-                or got != (2, 0):
+                or got[:2] != (2, 0):
             failures.append(f"profiled: exit {rc}, {summary['frames']} frames, kernel "
                             f"named {named}, launches {got}")
-        launches["tum_profiled"] = got[0]
+        launches["tum_profiled"] = got
 
         # resumed from the per-frame run's checkpoint: 4 more frames
         slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
@@ -1123,7 +1353,7 @@ def tum_phase(cam, world, frames) -> dict:
         slam.restore(m, ts, meta["trajectory"], meta["kf_log"])
         more = frames[TUM_FRAMES:TUM_FRAMES + TUM_RESUME_FRAMES]
         torch.cuda.synchronize()
-        fast_kernel.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         for f in more:
             slam.track_rgbd(f.image, f.depth_image, TUM_OFFSET_S + f.timestamp)
@@ -1132,20 +1362,21 @@ def tum_phase(cam, world, frames) -> dict:
         got = path_launches()
         slam.flush_stats()
         ts_all, poses = slam.get_trajectory()
+        POSE_HASHES["tum_resume"] = pose_hash(poses)
         w_t, w_gt = world.groundtruth()
         ate = ate_rmse(ts_all, poses, w_t + TUM_OFFSET_S, w_gt)
         statuses = [s.get("status") for s in slam.stats]
         print(f"tum resume [{card}]: checkpoint of {len(meta['trajectory'])} frames on "
               f"{m.p_xyz.device}, {len(more)} more frames at {ms:.2f} ms/frame, statuses "
               f"{statuses}, ATE over all {len(ts_all)} frames {ate:.5f} m, kernel launches "
-              f"(fused, map) {got}")
+              f"(fused, map, segment sum) {got}")
         if statuses != [1] * len(more) or len(ts_all) != TUM_FRAMES + len(more):
             failures.append(f"resume: statuses {statuses}, {len(ts_all)} frames")
         if not ate < ATE_BAR_M:
             failures.append(f"resume: ATE {ate} m >= {ATE_BAR_M} m")
-        if got != (len(more), 0):
-            failures.append(f"resume: kernel launches (fused, map) {got}")
-        launches["tum_resume"] = got[0]
+        if got[:2] != (len(more), 0):
+            failures.append(f"resume: kernel launches (fused, map, segment sum) {got}")
+        launches["tum_resume"] = got
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if failures:
@@ -1153,12 +1384,11 @@ def tum_phase(cam, world, frames) -> dict:
     return launches
 
 
-def localization_phase(cam) -> int:
+def localization_phase(cam):
     """Localisation mode and relocalisation at full width (see the module
-    docstring, step 13); returns the path's fused-kernel launches."""
+    docstring, step 13); returns the path's kernel launches."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
 
     card = card_line()
@@ -1168,7 +1398,7 @@ def localization_phase(cam) -> int:
     slam = SLAMSystem(cam, SLAMConfig(), device="cuda")
     seen, frame_ms = [], []
     torch.cuda.synchronize()
-    fast_kernel.reset_launches()
+    reset_counts()
     for k, f in enumerate(frames):
         slam.set_localization_mode(LOC_START <= k < LOC_END)
         img, depth = f.image, f.depth_image
@@ -1188,6 +1418,7 @@ def localization_phase(cam) -> int:
     gt_t, gt = world.groundtruth()
     keep = np.array([k not in LOC_BLACK for k in range(LOC_FRAMES)])
     ate = ate_rmse(ts[keep], poses[keep], gt_t, gt)
+    POSE_HASHES["localization"] = pose_hash(poses)
     loc = [k for k in range(LOC_START, LOC_END) if k not in LOC_BLACK]
     mapped = [k for k in range(LOC_FRAMES) if k < LOC_START or k >= LOC_END]
     print(f"localization [{card}]: frames 0-{LOC_START - 1} map, {LOC_START}-{LOC_END - 1} "
@@ -1199,7 +1430,7 @@ def localization_phase(cam) -> int:
           f"median ms/frame localising {statistics.median(frame_ms[k] for k in loc):.2f}, "
           f"mapping {statistics.median(frame_ms[k] for k in mapped[3:]):.2f}; ATE over "
           f"the {int(keep.sum())} non-black frames {ate:.5f} m; kernel launches "
-          f"(fused, map) {got}")
+          f"(fused, map, segment sum) {got}")
     failures = []
     if any(seen[k] != seen[LOC_START - 1] for k in range(LOC_START, LOC_END)):
         failures.append(f"the map changed in localisation mode: "
@@ -1211,14 +1442,14 @@ def localization_phase(cam) -> int:
         failures.append(f"lost frames {lost}, tracked again on frame {back}")
     if not ate < LOC_ATE_BAR_M:
         failures.append(f"ATE {ate} m >= {LOC_ATE_BAR_M} m")
-    if got != (LOC_FRAMES, 0):
-        failures.append(f"kernel launches (fused, map) {got}, expected ({LOC_FRAMES}, 0)")
+    if got[:2] != (LOC_FRAMES, 0):
+        failures.append(f"kernel launches (fused, map, segment sum) {got}, expected ({LOC_FRAMES}, 0)")
     if failures:
         raise AssertionError("localization phase: " + "; ".join(failures))
-    return got[0]
+    return got
 
 
-def direct_descriptor_stage(cam, frames, world) -> int:
+def direct_descriptor_stage(cam, frames, world):
     """The tracking phase's first frames with the "direct" descriptor (see
     the module docstring, step 14); returns the path's fused-kernel
     launches."""
@@ -1237,34 +1468,409 @@ def direct_descriptor_stage(cam, frames, world) -> int:
     if poses.shape != (DIRECT_FRAMES, 4, 4) or not np.all(np.isfinite(poses)):
         raise AssertionError(f"direct descriptor: bad trajectory, shape {poses.shape}")
     ate = ate_rmse(ts, poses, gt_t, gt)
+    POSE_HASHES["direct_descriptor"] = pose_hash(poses)
     print(f"direct descriptor [{card_line()}]: {DIRECT_FRAMES} frames, median "
           f"{statistics.median(frame_ms[1:]):.2f} ms/frame after the first, ATE "
           f"{ate:.5f} m, keyframes {int(slam.map.n_kfs)}, lost frames "
-          f"{statuses.count(2)}, kernel launches (fused, map) {got}, peak memory "
+          f"{statuses.count(2)}, kernel launches (fused, map, segment sum) {got}, peak memory "
           f"{peak_mb:.0f} MiB; the stage took {time.perf_counter() - t_stage:.1f} s")
     check_launches("direct descriptor", got, DIRECT_FRAMES)
     if 2 in statuses:
         raise AssertionError(f"direct descriptor: tracking lost: statuses {statuses}")
     if not ate < ATE_BAR_M:
         raise AssertionError(f"direct descriptor: ATE {ate} m >= {ATE_BAR_M} m")
-    return got[0]
+    return got
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (+0 and -0 apart)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.dtype]), b.contiguous().view(ints[b.dtype]))
+
+
+def segment_sum_cases(cam, cfg, loop_map) -> dict:
+    """{shape: (targets, idx, values)} on the card: the shapes of the port's
+    edge sums (see the module docstring, step 16)."""
+    from lc_crf_slam_torch.models.loopclosing import _essential_edges, _map_ba_problem
+    from lc_crf_slam_torch.models.mapstate import covisibility
+    from lc_crf_slam_torch.ops.schur import _edge_residuals, _robust_weights
+
+    m = type(loop_map)(*(t.to("cuda") for t in loop_map))
+    prob = _map_ba_problem(cfg, m)
+    C, P = m.kf_Tcw.shape[0], m.p_xyz.shape[0]
+    # the per-edge blocks of BA's normal equations, as ops/schur.py forms them
+    r, J_cam, J_pt, z_ok = _edge_residuals(cam, m.kf_Tcw, m.p_xyz, prob)
+    active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
+    _, w, _ = _robust_weights(r, prob.e_w, active, cfg.local_ba.huber_delta)
+    J_cam = J_cam * (~prob.cam_fixed[prob.e_cam]).to(J_cam.dtype)[:, None, None]
+    wJc, wJp = w[:, None, None] * J_cam, w[:, None, None] * J_pt
+    e_cam, e_pt = prob.e_cam.long(), prob.e_pt.long()
+    # the pose graphs' ends: the essential graph of a closure of the newest
+    # keyframe on keyframe 0; random Jacobian blocks from a seed
+    kf = torch.full((), int(m.n_kfs) - 1, dtype=torch.int32, device="cuda")
+    e_i, e_j, _, _ = _essential_edges(cfg, m, covisibility(m), kf, torch.zeros_like(kf))
+    ends = torch.cat([e_i, e_j]).long()
+    rng = np.random.default_rng(8)
+
+    def jtj(d, dtype):
+        J = torch.as_tensor(rng.normal(0, 1, (ends.shape[0], d, d)), dtype=dtype,
+                            device="cuda")
+        return torch.einsum("eik,eil->ekl", J, J)
+
+    g_c = torch.einsum("eij,ei->ej", wJc, r)
+    return {
+        "Hcc": (C, e_cam, torch.einsum("eij,eik->ejk", wJc, J_cam)),
+        "Hpp": (P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt)),
+        "W": (P * C, e_pt * C + e_cam, torch.einsum("eij,eik->ejk", wJc, J_pt)),
+        "se3_D": (C, ends, jtj(6, torch.float32)),
+        "sim3_D": (C, ends, jtj(7, torch.float32)),
+        "sim3_D_float64": (C, ends, jtj(7, torch.float64)),
+        "empty": (C, e_cam[:0], g_c[:0]),
+        "one_target": (C, torch.full_like(e_cam, 5), g_c),
+    }
+
+
+def check_segment_kernel(cam, cfg, loop_map) -> dict:
+    """`segment_sum` on the card against its plain version on CPU copies
+    of the same inputs, bitwise, and times (see the module docstring, step
+    16). Returns {shape: report row}."""
+    from lc_crf_slam_torch.ops import segment_sum as ss
+
+    card = card_line()
+    rows = {}
+    for name, (n, idx, vals) in segment_sum_cases(cam, cfg, loop_map).items():
+        E = idx.shape[0]
+        flat = vals.reshape(E, int(np.prod(vals.shape[1:]))).contiguous()
+        plan = ss.segment_plan(idx, n)
+        out = ss.segment_sum(vals, plan)
+        ref = ss.segment_sum_plain(n, idx.cpu(), vals.cpu())
+        torch.cuda.synchronize()
+        out = out.cpu()
+        err = float((out - ref).abs().max()) if out.numel() else 0.0
+        if not same_bits(out, ref):
+            raise AssertionError(f"segment_sum kernel != plain version on {name}: max abs "
+                                 f"err {err}")
+        k = flat.shape[1]
+        ms, _ = cuda_ms(ss.segment_sum_cuda, n, flat, plan.runs)
+        plan_ms, _ = cuda_ms(ss.segment_plan, idx, n)
+        plain_ms, _ = cuda_ms(ss.segment_sum_plain, n, idx, flat)
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_ms, _ = cuda_ms(ss.segment_sum_plain, n, idx, flat, batches=3, reps=2)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        size = vals.element_size()
+        n_bytes = E * idx.element_size() + E * k * size + n * k * size
+        b_ms = n_bytes / PEAK_BYTES_S * 1e3
+        live = int((flat != 0).any(dim=1).sum())
+        rows[name] = {"n": n, "E": E, "k": k, "dtype": str(vals.dtype).split(".")[-1],
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": "bytes", "library_ms": plain_ms,
+                      "deterministic_ms": det_ms, "plan_ms": plan_ms}
+        print(f"segment_sum {name} [{card}] ({E} edges, {live} with a non-zero row, "
+              f"{n} targets, {k} columns, {rows[name]['dtype']}): bitwise equal; kernel "
+              f"{ms:.4f} ms, index_add_ {plain_ms:.4f} ms (float atomics), "
+              f"deterministic {det_ms:.4f} ms; plan {plan_ms:.4f} ms; bound "
+              f"{b_ms:.5f} ms by bytes")
+    return rows
+
+
+def loop_per_frame_phase(cam, world, frames):
+    """Loop closing one frame at a time (see the module docstring, step
+    17); returns the path's kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
+    card = card_line()
+    gt_times, gt = world.groundtruth()
+    slam = SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
+                      device="cuda")
+    rows = []   # per frame: ms, host syncs, budget pending before it, slices, closed
+    with timed_stages() as (stage_ms, before):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for f in frames:
+            pending = slam._gba_pending is not None
+            slices, loops = slam._gba_slices_run, len(slam.loop_log)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    slam.track_rgbd(f.image, f.depth_image, f.timestamp)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            rows.append((ms, count_syncs(caught), pending, slam._gba_slices_run - slices,
+                         len(slam.loop_log) > loops))
+        got = path_launches()
+        slam.flush_stats()
+        ts, poses = slam.get_trajectory()       # finishes a pending global BA
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    POSE_HASHES["loop_per_frame"] = pose_hash(poses)
+    ate = ate_rmse(ts, poses, gt_times, gt)
+    m = slam.map
+    is_kf = [bool(s.get("need_kf")) for s in slam.stats]
+    lost = sum(1 for s in slam.stats if s.get("status", 1) != 1)
+    closing = [k for k, row in enumerate(rows) if row[4]]
+    budget = [k for k, row in enumerate(rows) if row[2] or row[4]]
+    quiet = [k for k in range(3, len(rows)) if not (is_kf[k] or rows[k][2] or rows[k][4])]
+    quiet_syncs = sorted({rows[k][1] for k in quiet})
+    print(f"loop per frame [{card}]: {len(frames)} frames through track_rgbd, median "
+          f"{statistics.median(r[0] for r in rows[3:]):.2f} ms/frame after the first 3, "
+          f"mean {np.mean([r[0] for r in rows[1:]]):.2f} over frames 1-{len(rows) - 1}; "
+          f"closing frames {closing} at {[round(rows[k][0], 1) for k in closing]} ms; "
+          f"frames with a budget pending {budget} at "
+          f"{[round(rows[k][0], 1) for k in budget]} ms, slices "
+          f"{[rows[k][3] for k in budget]}")
+    for name, ms in stage_ms.items():
+        print(f"loop per frame [{card}]: {name} x{len(ms)}: ms {[round(t, 1) for t in ms]}")
+    print(f"loop per frame [{card}]: loop_log {slam.loop_log}, verified candidates "
+          f"{slam.n_verify_loops}, detect_loop calls {slam.n_detect_loops}, global-BA "
+          f"slices {slam._gba_slices_run}, keyframes {len(slam.kf_log)} ({int(m.n_kfs)} in "
+          f"the map), lost frames {lost}, ATE {ate:.5f} m, kernel launches (fused, map, "
+          f"segment sum) {got}, host syncs on the {len(quiet)} non-keyframe frames "
+          f"without a budget: {quiet_syncs}, on keyframe frames "
+          f"{sorted({rows[k][1] for k in range(3, len(rows)) if is_kf[k]})}, peak memory "
+          f"{peak_mb:.0f} MiB")
+    failures = []
+    try:
+        check_launches("loop per frame phase", got, len(frames))
+    except AssertionError as e:
+        failures.append(str(e))
+    if not slam.loop_log or not slam.loop_log[0]["kf"] < len(slam.kf_log):
+        failures.append(f"loop_log {slam.loop_log} with {len(slam.kf_log)} keyframes")
+    if not ate < PF_LOOP_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {PF_LOOP_ATE_BAR_M} m")
+    if lost:
+        failures.append(f"{lost} lost frames")
+    if len(slam.kf_log) < PF_LOOP_MIN_KFS:
+        failures.append(f"{len(slam.kf_log)} keyframes < {PF_LOOP_MIN_KFS}")
+    wrong = [k for k, row in enumerate(rows) if row[3] != int(row[2] or row[4])]
+    if wrong or slam._gba_pending is not None:
+        failures.append(f"global-BA slices {[rows[k][3] for k in wrong]} on frames {wrong}, "
+                        f"pending at the end {slam._gba_pending}")
+    if quiet_syncs != [1]:
+        failures.append(f"host syncs {quiet_syncs} on non-keyframe frames without a budget")
+    stale = stale_obs_counts(m)
+    if stale:
+        failures.append(f"{stale} live points whose observation count differs from "
+                        f"the recount")
+    if before:
+        n_same, ate_before, ate_after, steps = closure_kf_ates(before, m, gt_times, gt)
+        print(f"loop per frame [{card}]: the {n_same} keyframes alive at the first "
+              f"closure: ATE {ate_before:.5f} m just before it, "
+              f"{[round(a, 5) for a in steps]} m after correct_loop and each global-BA "
+              f"slice, {ate_after:.5f} m at the end; {int(m.p_alive.sum())} live points")
+        # the closure itself (correct_loop) must not make the keyframes
+        # worse; its global BA must hold them as the reference's global BA
+        # does on the same map, after each slice and at the end
+        if not steps[0] <= LOOP_KF_ATE_FACTOR * ate_before:
+            failures.append(f"keyframe ATE {steps[0]} m after correct_loop > "
+                            f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
+        failures += check_global_ba_against_reference(card, before, ate_after, gt_times, gt)
+    if failures:
+        raise AssertionError("loop per frame phase: " + "; ".join(failures))
+    return got
+
+
+def check_global_ba_against_reference(card, before, ate_end, gt_times, gt) -> list:
+    """The per-frame loop phase's global BA against the reference's on
+    the same map (BA_MAP_FILE): the map the first slice was handed must be
+    the file's (to BA_MAP_TOL; else this run's is written to BA_MAP_OUT),
+    and the file's keyframes' ATE after each slice, and the closure's
+    keyframes' at the end, at most LOOP_KF_ATE_FACTOR x the reference's
+    after the same slice and after its last. Returns the failures."""
+    ref = np.load(BA_MAP_FILE)
+    got = before.get("ba_map")
+    if got is None:
+        return ["no global-BA slice after the first closure"]
+    diff = ba_map_diff(got, ref)
+    if not diff <= BA_MAP_TOL:
+        os.makedirs(os.path.dirname(BA_MAP_OUT), exist_ok=True)
+        np.savez_compressed(BA_MAP_OUT, **got, ate_kfs=before["alive"])
+        return [f"the map handed to the first global-BA slice differs from "
+                f"{os.path.relpath(BA_MAP_FILE, HERE)} by {diff}; this run's is in "
+                f"{os.path.relpath(BA_MAP_OUT, HERE)}"]
+    which, ref_ates = ref["ate_kfs"], [float(a) for a in ref["ref_kf_ate"]]
+    ates = [keyframe_ate(Tcw, before["time"], which, gt_times, gt)
+            for stage, Tcw in before["after"] if stage == "global_ba"]
+    print(f"loop per frame [{card}]: the map before global BA is the committed one "
+          f"(max diff {diff:.3e}); the {int(which.sum())} keyframes' ATE after each "
+          f"global-BA slice {[round(a, 5) for a in ates]} m, the reference's on that "
+          f"map {[round(a, 5) for a in ref_ates]} m")
+    if len(ates) != len(ref_ates) or not all(
+            a <= LOOP_KF_ATE_FACTOR * r for a, r in zip(ates, ref_ates)) \
+            or not ate_end <= LOOP_KF_ATE_FACTOR * ref_ates[-1]:
+        return [f"keyframe ATE after the global-BA slices {ates} and at the end "
+                f"{ate_end} m against {LOOP_KF_ATE_FACTOR} x the reference's "
+                f"{ref_ates} m on the same map"]
+    return []
+
+
+def mover_revisit_phase():
+    """The revisit with a mover in the start sector (see the module
+    docstring, step 18); returns the path's kernel launches."""
+    from lc_crf_slam_torch.config import LoopConfig, SLAMConfig
+    from lc_crf_slam_torch.models.mapstate import covisibility
+    from lc_crf_slam_torch.models.system import SLAMSystem
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    card = card_line()
+    cam = qvga()
+    t0 = time.perf_counter()
+    world = SyntheticWorld(cam=cam, n_frames=MOVER_FRAMES, n_static=1600, n_dynamic=0,
+                           seed=3, trajectory="sweep", billboard=True, bb_speed=0.012,
+                           bb_center0=(-0.5, 0.0, 2.4), bb_size=(0.9, 1.2))
+    frames = [world.frame(k, render=True) for k in range(MOVER_FRAMES)]
+    render_s = time.perf_counter() - t0
+    cfg = SLAMConfig(loop=LoopConfig(min_total_matches=25))
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, fuse_reverse_neighbors=0, interrupt_fuse_reverse_neighbors=0))
+    slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cuda")
+    frame_ms, syncs, got, peak_mb = drive(slam, frames, range(3, MOVER_FRAMES))
+    slam.flush_stats()
+    ts, poses = slam.get_trajectory()
+    POSE_HASHES["mover_revisit"] = pose_hash(poses)
+    gt_t, gt = world.groundtruth()
+    ate = ate_rmse(ts, poses, gt_t, gt)
+    lost = sum(1 for s in slam.stats if s.get("status", 1) != 1)
+    m = slam.map
+    alive = m.p_alive.cpu().numpy()
+    gtd = world.bb_gt_dynamic(m.p_xyz.cpu().numpy(), n=MOVER_FRAMES) & alive
+    judged = gtd & (m.p_visible.cpu().numpy() >= 4)
+    n_kfs = int(m.n_kfs)
+    W = covisibility(m).cpu().numpy()[:n_kfs, :n_kfs]
+    early_late = float(W[:4, n_kfs - 4:].max()) if n_kfs >= 8 else 0.0
+    is_kf = [bool(s.get("need_kf")) for s in slam.stats]
+    print(f"mover revisit [{card}]: {MOVER_FRAMES} QVGA frames (rendered in "
+          f"{render_s:.1f} s) through track_rgbd, median "
+          f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3; loop_log "
+          f"{slam.loop_log}, verified candidates {slam.n_verify_loops}, global-BA slices "
+          f"{slam._gba_slices_run}, keyframes {len(slam.kf_log)} ({n_kfs} in the map), "
+          f"early-late covisibility {early_late:.0f}, lost frames {lost}, ATE {ate:.5f} m; "
+          f"live points {int(alive.sum())}, mover points {int(gtd.sum())} (judged "
+          f"{int(judged.sum())}); kernel launches (fused, map, segment sum) {got}; host "
+          f"syncs on non-keyframe frames "
+          f"{sorted({syncs[k] for k in syncs if not is_kf[k]})}, on keyframe frames "
+          f"{sorted({syncs[k] for k in syncs if is_kf[k]})}; peak memory {peak_mb:.0f} MiB")
+    failures = []
+    try:
+        check_launches("mover revisit phase", got, MOVER_FRAMES)
+    except AssertionError as e:
+        failures.append(str(e))
+    if not slam.loop_log and not (n_kfs >= 10 and early_late >= MOVER_RECONNECT):
+        failures.append(f"the revisit neither closed a loop nor reconnected "
+                        f"(early-late covisibility {early_late})")
+    if not ate < PF_LOOP_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {PF_LOOP_ATE_BAR_M} m")
+    if lost > MOVER_MAX_LOST:
+        failures.append(f"{lost} lost frames > {MOVER_MAX_LOST}")
+    n_alive = max(int(alive.sum()), 1)
+    if judged.sum() > MOVER_JUDGED_SHARE * n_alive or gtd.sum() > MOVER_ALL_SHARE * n_alive:
+        failures.append(f"mover points {int(gtd.sum())} (judged {int(judged.sum())}) of "
+                        f"{n_alive} live")
+    if alive.sum() < MOVER_MIN_LIVE:
+        failures.append(f"{int(alive.sum())} live points < {MOVER_MIN_LIVE}")
+    if failures:
+        raise AssertionError("mover revisit phase: " + "; ".join(failures))
+    return got
+
+
+def chunk_reloc_phase():
+    """Relocalisation at a chunk boundary (see the module docstring, step
+    19); returns the path's kernel launches."""
+    from lc_crf_slam_torch.config import SLAMConfig, TrackingConfig
+    from lc_crf_slam_torch.models import system
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    card = card_line()
+    cam = qvga()
+    world = SyntheticWorld(cam=cam, n_frames=96, n_static=1600, n_dynamic=0, seed=5,
+                           trajectory="sweep", pixel_noise=0.0, depth_noise=0.0)
+    rendered = {k: world.frame(k, render=True) for k in set(RELOC_FRAMES) if k >= 0}
+    black = np.zeros_like(rendered[0].image, dtype=np.float32)
+    grays = np.stack([rendered[k].image if k >= 0 else black
+                      for k in RELOC_FRAMES]).astype(np.float32)
+    depths = np.stack([rendered[k].depth_image if k >= 0 else black
+                       for k in RELOC_FRAMES]).astype(np.float32)
+    stamps = np.arange(len(RELOC_FRAMES)) / 30.0
+    cfg = SLAMConfig(tracking=TrackingConfig(max_frames_between_kf=4))
+    slam = system.SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
+                             device="cuda")
+    # each tracked frame's status, as it runs
+    statuses = []
+    track_step = system.track_step
+
+    def tracked(*args):
+        out = track_step(*args)
+        statuses.append(out[0].status)
+        return out
+
+    system.track_step = tracked
+    try:
+        chunks = count_chunks(slam)
+        torch.cuda.synchronize()
+        reset_counts()
+        slam.track_sequence(grays, depths, stamps, chunk=RELOC_CHUNK)
+        torch.cuda.synchronize()
+        got = path_launches()
+    finally:
+        system.track_step = track_step
+    slam.flush_stats()
+    ts, poses = slam.get_trajectory()
+    POSE_HASHES["chunk_reloc"] = pose_hash(poses)
+    status = torch.stack(statuses).cpu().numpy()
+    lost_at = [int(k) + 1 for k in np.flatnonzero(status == 2)]    # frame 0 initialises
+    ends = np.cumsum([c[0] for c in chunks])                   # last frame of each chunk
+    boundary = int(ends[np.searchsorted(ends, RELOC_BLACK_AT + 1)])
+    events = [(s["event"], round(s["t"] * 30.0), s.get("lost_frames", s.get("inliers")))
+              for s in slam.stats if s.get("event", "").startswith("chunk_")]
+    T_true = np.linalg.inv(world.gt_pose_twc(RELOC_REVISIT))
+    err = float(np.linalg.norm(slam.ts.Tcw.cpu().numpy()[:3, 3] - T_true[:3, 3]))
+    n_chunks = len(chunks)
+    ms_frame = sum(c[2] for c in chunks) / (len(RELOC_FRAMES) - 1)
+    per_chunk_attempts = [c[3][1] for c in chunks]
+    print(f"chunk reloc [{card}]: {len(RELOC_FRAMES)} QVGA frames (sweep 0-35, black "
+          f"36-37, frames 0-7 again) in 1 + {n_chunks} chunks of {RELOC_CHUNK}: "
+          f"{ms_frame:.2f} ms/frame (chunks {[round(c[2], 1) for c in chunks]} ms); events "
+          f"{events}; lost frames {lost_at}, the next chunk boundary after the black "
+          f"frames {boundary}; relocalisation attempts per chunk {per_chunk_attempts}; "
+          f"host syncs per chunk {[c[1] for c in chunks]}; final status "
+          f"{int(slam.ts.status)}, camera {err:.4f} m from frame {RELOC_REVISIT}'s ground "
+          f"truth; keyframes {int(slam.map.n_kfs)}; kernel launches (fused, map, segment "
+          f"sum) {got}")
+    failures = []
+    try:
+        # a relocalisation attempt at a chunk boundary builds its frame
+        check_launches("chunk reloc phase", got, 1 + n_chunks + sum(per_chunk_attempts))
+    except AssertionError as e:
+        failures.append(str(e))
+    kinds = [e[0] for e in events]
+    if "chunk_lost" not in kinds or "chunk_reloc" not in kinds:
+        failures.append(f"events {events}")
+    if not lost_at or min(lost_at) < RELOC_BLACK_AT or max(lost_at) > boundary:
+        failures.append(f"lost frames {lost_at}, expected within {RELOC_BLACK_AT}-{boundary}")
+    if int(slam.ts.status) != 1:
+        failures.append(f"final status {int(slam.ts.status)}")
+    for (n, syncs, *_), tries in zip(chunks, per_chunk_attempts):
+        if syncs > n + 1 + RELOC_SYNCS * tries:
+            failures.append(f"{syncs} host syncs in a chunk of {n} frames with {tries} "
+                            f"relocalisation attempts")
+    if not err < RELOC_POS_BAR_M:
+        failures.append(f"final camera {err} m from the revisited frame's ground truth")
+    if failures:
+        raise AssertionError("chunk reloc phase: " + "; ".join(failures))
+    return got
 
 
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
-
-
-@contextlib.contextmanager
-def deterministic():
-    """torch's deterministic algorithms (on the card, `index_add_` without
-    float atomics) inside the block; an op without one raises."""
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
 
 
 def synced_ms(fn, *args):
@@ -1277,9 +1883,9 @@ def synced_ms(fn, *args):
 
 
 def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_map,
-                      loop_frame_idx) -> int:
+                      loop_frame_idx):
     """The multi-device layer on the card (see the module docstring, step
-    15); returns the path's fused-kernel launches."""
+    15); returns the path's kernel launches."""
     import torch.distributed as dist
 
     from lc_crf_slam_torch._ops import stable_topk
@@ -1288,7 +1894,6 @@ def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_ma
     from lc_crf_slam_torch.models.capacities import CRF_TRACKS, RECENCY_WINDOW
     from lc_crf_slam_torch.models.loopclosing import _map_ba_problem
     from lc_crf_slam_torch.models.system import SLAMSystem
-    from lc_crf_slam_torch.ops import fast_kernel
     from lc_crf_slam_torch.ops.schur import solve_ba
     from lc_crf_slam_torch.parallel import dist_ba, dist_crf
     from lc_crf_slam_torch.parallel.mesh import edge_sharding, init_distributed, make_mesh
@@ -1309,10 +1914,9 @@ def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_ma
     failures = []
 
     # (b) the sequence phase's frames through SLAMSystem(mesh=...) and
-    # mesh=None. Local BA and the closures sum with float atomics on the
-    # card, so two runs of one path drift apart in the last bits (ROADMAP
-    # queue 3): both runs use torch's deterministic algorithms, and what
-    # differs between them is the split alone.
+    # mesh=None, with the default algorithms: the edge sums run in a fixed
+    # order (ops/segment_sum.py), so the two runs and the sequence phase
+    # must agree bit for bit
     n_cards = torch.cuda.device_count()
     devices = ([f"cuda:{i}" for i in range(n_cards)] if n_cards >= 2
                else ["cuda:0"] * DIST_SHARDS)
@@ -1326,47 +1930,55 @@ def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_ma
                           mesh=mesh)
         chunks = count_chunks(slam)
         torch.cuda.synchronize()
-        fast_kernel.reset_launches()
-        with deterministic():
-            poses_tcw = slam.track_sequence(grays, depths, [f.timestamp for f in frames],
-                                            chunk=SEQ_CHUNK)
-            torch.cuda.synchronize()
+        reset_counts()
+        poses_tcw = slam.track_sequence(grays, depths, [f.timestamp for f in frames],
+                                        chunk=SEQ_CHUNK)
+        torch.cuda.synchronize()
         got = path_launches()
         slam.flush_stats()
         runs[name] = (poses_tcw, slam.kf_log, chunks, got)
         del slam
     poses_tcw, kf_log, chunks, got = runs["mesh"]
+    for name, (p, *_) in runs.items():
+        POSE_HASHES[f"distributed {name}"] = pose_hash(p)
+    POSE_HASHES["sequence (chunked poses)"] = pose_hash(seq_poses)
+
     def centre(T):
         """Camera centres of poses Tcw (N, 4, 4)."""
         return np.einsum("nji,nj->ni", T[:, :3, :3], -T[:, :3, 3])
 
     dpos = float(np.abs(centre(poses_tcw) - centre(runs["mesh=None"][0])).max())
     spread = float(np.abs(centre(poses_tcw) - centre(seq_poses)).max())
+    same = {"mesh vs mesh=None": np.array_equal(poses_tcw, runs["mesh=None"][0]),
+            "mesh vs sequence phase": np.array_equal(poses_tcw, seq_poses),
+            "mesh=None vs sequence phase": np.array_equal(runs["mesh=None"][0], seq_poses)}
     n_fused = 1 + sum(min(fmesh.size, c[0]) for c in chunks)
     ms = {k: sum(c[2] for c in v[2]) / n_seq for k, v in runs.items()}
     print(f"distributed [{card}]: frames mesh {[str(d) for d in fmesh.devices]}, "
-          f"deterministic algorithms: {n_seq} chunked frames, {ms['mesh']:.2f} ms/frame "
+          f"default algorithms: {n_seq} chunked frames, {ms['mesh']:.2f} ms/frame "
           f"(chunks {[round(c[2], 1) for c in chunks]} ms), mesh=None {ms['mesh=None']:.2f} "
-          f"(the sequence phase, default algorithms: {seq_ms:.2f}); keyframes in chunks "
-          f"{len(kf_log)}, mesh=None {len(runs['mesh=None'][1])}, the sequence phase "
-          f"{len(seq_kf_log)} (equal: {kf_log == seq_kf_log}); camera centres vs mesh=None "
-          f"max {dpos:.3e} m (vs the sequence phase {spread:.3e} m); kernel launches "
-          f"(fused, map) {got}; host syncs per chunk {[c[1] for c in chunks]} for "
-          f"{[c[0] for c in chunks]} frames")
+          f"(the sequence phase: {seq_ms:.2f}); keyframes in chunks {len(kf_log)}, "
+          f"mesh=None {len(runs['mesh=None'][1])}, the sequence phase {len(seq_kf_log)} "
+          f"(equal: {kf_log == runs['mesh=None'][1] == seq_kf_log}); poses bitwise equal "
+          f"{same}; camera centres vs mesh=None max {dpos:.3e} m, vs the sequence phase "
+          f"{spread:.3e} m; kernel launches (fused, map, segment sum) {got}; host syncs "
+          f"per chunk {[c[1] for c in chunks]} for {[c[0] for c in chunks]} frames")
     try:
         check_launches("distributed phase", got, n_fused)
     except AssertionError as e:
         failures.append(str(e))
-    if kf_log != runs["mesh=None"][1]:
-        failures.append(f"keyframes {kf_log} != mesh=None's {runs['mesh=None'][1]}")
-    if not dpos <= DIST_CAM_TOL_M:
-        failures.append(f"poses {dpos} m from mesh=None's, more than {DIST_CAM_TOL_M}")
+    if not kf_log == runs["mesh=None"][1] == seq_kf_log:
+        failures.append(f"keyframes {kf_log}, mesh=None's {runs['mesh=None'][1]}, the "
+                        f"sequence phase's {seq_kf_log}")
+    if not all(same.values()):
+        failures.append(f"poses not bitwise equal: {same}")
     for n, syncs, *_ in chunks:
         if syncs > n + 1:
             failures.append(f"{syncs} host syncs in a chunk of {n} frames")
 
     # (c) the loop phase's final map: the whole-map BA three ways, timed
-    # with the default algorithms and compared with deterministic ones
+    # and compared with the default algorithms (one rank sums the same
+    # edges in the same order as one device: bitwise)
     m = type(loop_map)(*(t.to("cuda") for t in loop_map))
     prob = _map_ba_problem(cfg, m)
     blocks = dist_ba.partition_point_blocks(prob, emesh.size)
@@ -1378,28 +1990,21 @@ def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_ma
             cam, dist_ba.shard_problem(blocks, emesh, blocks=True), emesh,
             n_iters=DIST_BA_ITERS)}
     timed = {name: synced_ms(fn) for name, fn in solves.items()}
-    with deterministic():
-        exact = {name: fn() for name, fn in solves.items()}
     kf_live, p_live = m.kf_alive.cpu().numpy(), m.p_alive.cpu().numpy()
     P = p_live.shape[0]
-
-    def diffs(a, b):
-        dc = float(np.abs((a[0] - b[0])[:, :3, 3].cpu().numpy()[kf_live]).max())
-        dp = float(np.abs((a[1][:P] - b[1]).cpu().numpy()[p_live]).max())
-        return dc, dp
-
+    (ref, ms_s) = timed["solve_ba"]
     for name in ("dist_solve_ba", "dist_solve_ba_blocks"):
-        (out, ms_d), (ref, ms_s) = timed[name], timed["solve_ba"]
-        dc, dp = diffs(exact[name], exact["solve_ba"])
-        dc_a, dp_a = diffs(out, ref)
+        out, ms_d = timed[name]
+        bitwise = torch.equal(out[0], ref[0]) and torch.equal(out[1][:P], ref[1])
+        dc = float(np.abs((out[0] - ref[0])[:, :3, 3].cpu().numpy()[kf_live]).max())
+        dp = float(np.abs((out[1][:P] - ref[1]).cpu().numpy()[p_live]).max())
         print(f"distributed [{card}]: {name} on the loop map (C={m.kf_Tcw.shape[0]}, "
               f"P={P}, {int(out[2].n_edges)} edges, {int(kf_live.sum())} live keyframes, "
               f"{int(p_live.sum())} live points), {DIST_BA_ITERS} iterations: "
               f"{ms_d:.1f} ms (solve_ba {ms_s:.1f} ms); cost {float(out[2].cost):.6g} "
-              f"(solve_ba {float(ref[2].cost):.6g}); max diff to solve_ba, deterministic "
-              f"algorithms: cameras {dc:.3e} m, live points {dp:.3e}; default "
-              f"algorithms (atomics): {dc_a:.3e} m, {dp_a:.3e}")
-        if not (dc <= DIST_CAM_TOL_M and dp <= DIST_PT_TOL):
+              f"(solve_ba {float(ref[2].cost):.6g}); bitwise equal to solve_ba {bitwise} "
+              f"(max diff: cameras {dc:.3e} m, live points {dp:.3e})")
+        if not bitwise:
             failures.append(f"{name}: cameras {dc} m, points {dp} from solve_ba")
 
     # (d) the CRF of that map's recent tracks, one rank's rows against the
@@ -1432,13 +2037,14 @@ def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_ma
     dist.destroy_process_group()
     if failures:
         raise AssertionError("distributed phase: " + "; ".join(failures))
-    return got[0]
+    return got
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.geometry.camera import TUM3
@@ -1465,13 +2071,15 @@ def main() -> int:
     t0 = time.perf_counter()
     world = SyntheticWorld(cam=cam, n_frames=N_FRAMES, n_static=600,
                            n_dynamic=0, seed=0)
-    frames = [world.frame(k, render=True) for k in range(N_FRAMES)]
+    # the tracking phase's frames, and the TUM phase's resumed ones
+    frames = [world.frame(k, render=True)
+              for k in range(max(TRACK_FRAMES, TUM_FRAMES + TUM_RESUME_FRAMES))]
     dyn_world = SyntheticWorld(cam=cam, n_frames=60, n_static=1400, n_dynamic=0,
                                seed=7, trajectory="line", billboard=True,
                                bb_speed=0.04)
     dyn_frames = [dyn_world.frame(k, render=True) for k in range(DYN_FRAMES)]
     dyn_rights = [dyn_world.right_eye(k) for k in range(DYN_FRAMES)]
-    print(f"rendered {N_FRAMES} + {DYN_FRAMES} frames and {DYN_FRAMES} right eyes "
+    print(f"rendered {len(frames)} + {DYN_FRAMES} frames and {DYN_FRAMES} right eyes "
           f"{cam.width}x{cam.height} in {time.perf_counter() - t0:.1f} s")
 
     # ---- kernels vs plain --------------------------------------------------
@@ -1495,24 +2103,56 @@ def main() -> int:
     cells_b30 = check_cell_kernel("one stereo chunk", stereo_grays, cfg)
 
     # ---- the phases at full width -------------------------------------------
-    by_path = {"tracking": tracking_phase(cam, frames, world)}
-    by_path["dynamic"], dyn_ms = dynamic_phase(cam, dyn_frames, dyn_world)
-    by_path["sequence"], seq_ms, seq_poses, seq_kf_log = sequence_phase(
-        cam, dyn_frames, dyn_world, dyn_ms)
-    by_path["loop"], loop_map, loop_frame_idx = loop_phase(cam)
-    by_path["stereo"] = stereo_phase(cam)
-    by_path["stereo_sequence"] = stereo_sequence_phase(cam, dyn_frames, dyn_rights,
-                                                       dyn_world, seq_ms)
-    by_path["mono"], mono = mono_phase(cam)
-    sim3_closure_stage(mono)
-    by_path.update(tum_phase(cam, world, frames))
-    by_path["localization"] = localization_phase(cam)
-    by_path["direct_descriptor"] = direct_descriptor_stage(cam, frames, world)
-    by_path["distributed"] = distributed_phase(cam, dyn_frames, dyn_world, seq_ms,
-                                               seq_poses, seq_kf_log, loop_map,
-                                               loop_frame_idx)
-    if min(by_path.values()) < 1:
-        raise AssertionError(f"a path never launched the fused kernel: {by_path}")
+    # path -> its (fused, map, segment-sum) launches
+    by_path = {"tracking": phase("tracking", tracking_phase, cam, frames[:TRACK_FRAMES],
+                                 world)}
+    by_path["dynamic"], dyn_ms, dyn_poses, dyn_kf_log = phase(
+        "dynamic", dynamic_phase, cam, dyn_frames, dyn_world)
+    by_path["dynamic_repeat"], _, dyn_poses_2, dyn_kf_log_2 = phase(
+        "dynamic repeat", dynamic_phase, cam, dyn_frames, dyn_world, "dynamic repeat")
+    dyn_same = np.array_equal(dyn_poses, dyn_poses_2)
+    print(f"repeatability [{card_line()}]: two runs of the dynamic phase: trajectories "
+          f"bitwise equal {dyn_same}, keyframes {len(dyn_kf_log)} and "
+          f"{len(dyn_kf_log_2)} (equal logs: {dyn_kf_log == dyn_kf_log_2})")
+    if not (dyn_same and dyn_kf_log == dyn_kf_log_2):
+        raise AssertionError("the dynamic phase did not repeat bit for bit")
+    by_path["sequence"], seq_ms, seq_poses, seq_kf_log = phase(
+        "sequence", sequence_phase, cam, dyn_frames, dyn_world, dyn_ms)
+    loop_w, loop_frames = phase("loop world", loop_world, cam)
+    by_path["loop"], loop_map, loop_frame_idx = phase("loop", loop_phase, cam, loop_w,
+                                                      loop_frames)
+    seg_rows = phase("segment sum check", check_segment_kernel, cam, cfg, loop_map)
+    by_path["loop_per_frame"] = phase("loop per frame", loop_per_frame_phase, cam, loop_w,
+                                      loop_frames)
+    del loop_frames
+    by_path["mover_revisit"] = phase("mover revisit", mover_revisit_phase)
+    by_path["chunk_reloc"] = phase("chunk reloc", chunk_reloc_phase)
+    by_path["stereo"] = phase("stereo", stereo_phase, cam)
+    by_path["stereo_sequence"] = phase("stereo sequence", stereo_sequence_phase, cam,
+                                       dyn_frames, dyn_rights, dyn_world, seq_ms)
+    by_path["mono"], mono = phase("mono", mono_phase, cam)
+    by_path["sim3_closure"] = phase("sim3 closure", sim3_closure_stage, mono)
+    by_path.update(phase("tum", tum_phase, cam, world, frames))
+    by_path["localization"] = phase("localization", localization_phase, cam)
+    by_path["direct_descriptor"] = phase("direct descriptor", direct_descriptor_stage,
+                                         cam, frames, world)
+    by_path["distributed"] = phase("distributed", distributed_phase, cam, dyn_frames,
+                                   dyn_world, seq_ms, seq_poses, seq_kf_log, loop_map,
+                                   loop_frame_idx)
+    print(f"pose hashes: {json.dumps(POSE_HASHES)}")
+    print(f"seconds per phase: {json.dumps(PHASE_S)}")
+    # every path but the handed-in Sim(3) closure goes through the fused
+    # kernel; the segment sum on every path that runs local BA or a pose
+    # graph (the profiled CLI run's 3 frames and the 4 resumed ones make
+    # no keyframe that maps, so they may count 0)
+    no_fused = [p for p, got in by_path.items() if got[0] < 1 and p != "sim3_closure"]
+    may_skip = NO_SEGMENT_SUM + ("tum_profiled", "tum_resume")
+    no_sum = [p for p, got in by_path.items() if got[2] < 1 and p not in may_skip]
+    sum_off = [p for p in NO_SEGMENT_SUM if by_path[p][2] != 0]
+    if no_fused or no_sum or sum_off:
+        raise AssertionError(f"paths that never launched the fused kernel {no_fused}, "
+                             f"never the segment sum {no_sum}, launched it without "
+                             f"local BA or a pose graph {sum_off}: {by_path}")
 
     # ---- report ------------------------------------------------------------
     level_rows = [r for r in rows if r[0].startswith("level")]
@@ -1526,8 +2166,8 @@ def main() -> int:
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
         # the paths' own launches, each counted from 0 (no launch of
         # the kernel checks above is among them)
-        "launches": sum(by_path.values()),
-        "launches_by_path": by_path,
+        "launches": sum(got[0] for got in by_path.values()),
+        "launches_by_path": {p: got[0] for p, got in by_path.items()},
         "max_abs_err": max(c["max_abs_err"]
                            for c in (cells_b1, cells_b2, cells_b8, cells_b15, cells_b30)),
         # one launch for a chunk of 15 frames (the throughput path's shape)
@@ -1563,7 +2203,26 @@ def main() -> int:
         "bound_ms": maps_bound_ms,
         "bound_by": maps_bound_by,
         "library_ms": None,     # no single PyTorch call computes it
+    }, {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "lc_crf_slam_torch/csrc/segment_sum.cu",
+        # the port's own edge sums: no Pallas kernel did them (XLA's
+        # scatter-add in the reference)
+        "replaces": None,
+        "launches": sum(got[2] for got in by_path.values()),
+        "launches_by_path": {p: got[2] for p, got in by_path.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in seg_rows.values()),
+        # the headline shape: the point blocks Hpp of the loop map's BA
+        # (32768 targets, the invalid edges' run of ~315k on point 0);
+        # plain_ms and library_ms are the same call, `index_add_` with
+        # float atomics, the plain version on the card
+        **{k: seg_rows["Hpp"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "deterministic_ms",
+                                           "plan_ms")},
+        "shapes": seg_rows,
     }]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in the script")
     print(card_line())
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@
   indexed writes raise on an out-of-range index, so these helpers write
   into a copy with one extra dump row and cut it off again. Negative
   indices are dropped too (the reference never passes one to a drop-mode
-  write: JAX would wrap it). `scatter_min` / `scatter_max` are
+  write: JAX would wrap it). `scatter_set` lets the last of duplicate
+  writes win on every device. `scatter_min` / `scatter_max` are
   `.at[idx].min/.max(mode="drop")`.
 - Popcount of int32 words (descriptors are int32 bit-views of the
   reference's uint32 words) as a SWAR reduction in int64.
@@ -56,11 +57,21 @@ def _with_dump_row(arr: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_set(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """`arr.at[idx].set(val, mode="drop")` along axis 0. Which of several
-    writes to one index wins is unspecified, as in JAX."""
+    """`arr.at[idx].set(val, mode="drop")` along axis 0. Where several
+    entries of idx name one row, the last of them (in idx's row-major
+    order) wins, on every device. JAX leaves it unspecified; the CPU's
+    indexed write goes in order, so the last wins there, but on a card
+    the writes race and two runs of one path part (one run's tracked
+    points differed from the other's on the second frame). So every
+    entry but each row's last is sent to the dump row."""
     n = arr.shape[0]
+    dump = _dump_index(idx, n)
+    flat = dump.reshape(-1)
+    pos = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=flat.device).scatter_reduce_(
+        0, flat, pos, "amax")
     out = _with_dump_row(arr)
-    out[_dump_index(idx, n)] = as_value(val, arr)
+    out[torch.where(last[flat] == pos, flat, n).reshape(dump.shape)] = as_value(val, arr)
     return out[:n]
 
 

@@ -38,3 +38,16 @@ def umeyama_alignment(src, dst, w=None, with_scale: bool = False):
     else:
         s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
     return s, R, mu_d - s[..., None] * (R @ mu_s[..., None])[..., 0]
+
+
+def horn_sim3(src, dst, w=None, fix_scale: bool = True):
+    """Closed-form Sim(3) (s, R, t) mapping src -> dst: the Umeyama
+    solution, rigid with `fix_scale` (RGB-D loop closing)."""
+    return umeyama_alignment(src, dst, w=w, with_scale=not fix_scale)
+
+
+def alignment_residuals(src, dst, s, R, t):
+    """Per-point residual norms after applying (s, R, t) to src."""
+    mapped = s[..., None, None] * torch.einsum("...ij,...nj->...ni", R, src) \
+        + t[..., None, :]
+    return torch.linalg.norm(mapped - dst, dim=-1)

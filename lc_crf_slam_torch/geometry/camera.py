@@ -36,6 +36,37 @@ class Pinhole(NamedTuple):
         return any(abs(v) > 1e-12 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
+def project_points(cam: Pinhole, p_cam: torch.Tensor):
+    """Camera-frame points (..., 3) -> pixel (..., 2), depth (...,); no
+    distortion (the pipeline works on undistorted pixels)."""
+    z = p_cam[..., 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    u = cam.fx * p_cam[..., 0] / z_safe + cam.cx
+    v = cam.fy * p_cam[..., 1] / z_safe + cam.cy
+    return torch.stack([u, v], dim=-1), z
+
+
+def project_stereo(cam: Pinhole, p_cam: torch.Tensor):
+    """-> (u, v, uR) (..., 3) and depth; uR = u - bf/z (RGB-D virtual right)."""
+    uv, z = project_points(cam, p_cam)
+    z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    ur = uv[..., 0] - cam.bf / z_safe
+    return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
+def unproject_depth(cam: Pinhole, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels (..., 2) + depth (...,) -> camera-frame points (..., 3)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
+def in_image(cam: Pinhole, uv: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """Boolean mask (...,) for pixels inside the image bounds."""
+    return ((uv[..., 0] >= margin) & (uv[..., 0] < cam.width - margin)
+            & (uv[..., 1] >= margin) & (uv[..., 1] < cam.height - margin))
+
+
 def _rad_tan(cam: Pinhole, x: torch.Tensor, y: torch.Tensor):
     """(radial factor, tangential dx, dy) of normalised coordinates."""
     r2 = x * x + y * y

@@ -44,6 +44,11 @@ def hat_so3(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee_so3(W: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) skew matrix -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _sinc(x: torch.Tensor) -> torch.Tensor:
     small = torch.abs(x) < 1e-4
     xs = torch.where(small, 1.0, x)
@@ -180,6 +185,15 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     Rt = R.transpose(-1, -2)
     return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def se3_apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., 3)."""
+    return (T[..., :3, :3] @ p[..., None])[..., 0] + T[..., :3, 3]
 
 
 def _det3(M: torch.Tensor) -> torch.Tensor:

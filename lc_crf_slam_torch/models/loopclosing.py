@@ -49,8 +49,8 @@ from ..geometry.sim3 import se3_from_sim3, sim3_compose, sim3_from_se3, sim3_inv
 from ..ops.match import hamming_matrix, match_nn, projection_gate, resolve_duplicates
 from ..ops.pnp import PnPSampler, pnp_ransac
 from ..ops.ransac import HornSampler, horn_ransac
-from ..ops.schur import (BAProblem, _edge_residuals, _robust_weights, _sum_into,
-                         solve_ba_cg)
+from ..ops.schur import BAProblem, _edge_residuals, _robust_weights, solve_ba_cg
+from ..ops.segment_sum import segment_plan, segment_sum
 from .ba import pose_optimize
 from .frame import Frame
 from .mapping import fuse_duplicates
@@ -437,10 +437,13 @@ def global_ba_alternating(cfg: SLAMConfig, cam: Pinhole, m: MapState,
         active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
         return r, J_cam, J_pt, _robust_weights(r, prob.e_w, active, huber)[1]
 
-    def damped_step(n, idx, wJ, J, r, k):
-        """-(H + 1e-3 diag H + 1e-6 I)^-1 g of each of n k x k blocks; H."""
-        H = _sum_into(n, idx, torch.einsum("eij,eik->ejk", wJ, J))
-        g = _sum_into(n, idx, torch.einsum("eij,ei->ej", wJ, r))
+    plan_cam, plan_pt = segment_plan(prob.e_cam, F), segment_plan(prob.e_pt, P)
+
+    def damped_step(plan, wJ, J, r, k):
+        """-(H + 1e-3 diag H + 1e-6 I)^-1 g of each of the plan's k x k
+        blocks; H."""
+        H = segment_sum(torch.einsum("eij,eik->ejk", wJ, J), plan)
+        g = segment_sum(torch.einsum("eij,ei->ej", wJ, r), plan)
         eye = torch.eye(k, dtype=H.dtype, device=H.device)
         H = H + 1e-3 * torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-6 * eye
         return -torch.linalg.solve_ex(H, g[..., None])[0][..., 0], H
@@ -448,10 +451,10 @@ def global_ba_alternating(cfg: SLAMConfig, cam: Pinhole, m: MapState,
     cam_Tcw, p_xyz = m.kf_Tcw, m.p_xyz
     for _ in range(n_rounds):
         r, J_cam, _, w = weights(cam_Tcw, p_xyz)
-        delta_c, _ = damped_step(F, prob.e_cam, w[:, None, None] * J_cam, J_cam, r, 6)
+        delta_c, _ = damped_step(plan_cam, w[:, None, None] * J_cam, J_cam, r, 6)
         cam_Tcw = exp_se3(delta_c * movable[:, None].to(delta_c.dtype)) @ cam_Tcw
         r, _, J_pt, w = weights(cam_Tcw, p_xyz)
-        delta_p, Hpp = damped_step(P, prob.e_pt, w[:, None, None] * J_pt, J_pt, r, 3)
+        delta_p, Hpp = damped_step(plan_pt, w[:, None, None] * J_pt, J_pt, r, 3)
         has_obs = torch.einsum("pii->p", Hpp) > 1e-5
         p_xyz = p_xyz + torch.where((prob.p_valid & has_obs)[:, None], delta_p, 0.0)
     return m._replace(kf_Tcw=cam_Tcw, p_xyz=p_xyz)

@@ -403,8 +403,10 @@ def refresh_point_stats(cfg: SLAMConfig, cam: Pinhole, m: MapState,
     flat = (torch.arange(W, device=dev)[:, None] * (Np + 1) + slots).reshape(-1)
 
     def table(vals, fill_shape, dtype):
+        # a keyframe that observes a point twice writes its slot twice:
+        # the last write wins (`scatter_set`), on the card too
         out = torch.zeros((W * (Np + 1),) + fill_shape, dtype=dtype, device=dev)
-        out[flat] = vals.reshape((-1,) + fill_shape).to(dtype)
+        out = scatter_set(out, flat, vals.reshape((-1,) + fill_shape).to(dtype))
         return out.reshape((W, Np + 1) + fill_shape)[:, :Np]
 
     descs = table(m.kf_desc[kf_safe], (8,), torch.int32)

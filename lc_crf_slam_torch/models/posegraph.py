@@ -6,12 +6,13 @@ Levenberg-Marquardt over the keyframe poses with residuals
     r_e = log(T_i T_j^-1 T_ij_meas^-1),
 analytic per-edge Jacobians (J_i = Jl^-1(r), J_j = -Jl^-1(-r) Ad(T_ij)),
 and the damped normal equations solved by block-Jacobi preconditioned
-conjugate gradients whose matvec is one gather and one `index_add_` over
+conjugate gradients whose matvec is one gather and one segment sum over
 the edges: O(E) memory, never a dense Hessian. A fixed 20 LM x 64 CG
 iterations with no early exit, as the reference. The sums over edges add
-both ends of every edge in one `index_add_` (all i ends, then all j ends:
-the reference's order on the CPU; float atomics on a card, so a
-correction there is not bitwise repeatable).
+both ends of every edge in one `segment_sum` (all i ends, then all j
+ends, each node's in that order: the reference's order on the CPU, and
+the same on a card, so a correction there repeats bit for bit); its plan
+is built once per optimisation.
 
 The Sim(3) graph (`Sim3Graph`, `optimize_pose_graph_sim3`: the monocular
 loop's essential graph, whose free scale absorbs scale drift) has the
@@ -30,6 +31,7 @@ import torch
 
 from ..geometry.se3 import exp_se3, hat_so3, log_se3, se3_inverse
 from ..geometry.sim3 import exp_sim3, log_sim3, sim3_compose, sim3_inverse
+from ..ops.segment_sum import SegmentPlan, segment_plan, segment_sum
 
 
 def _ad_se3(xi: torch.Tensor) -> torch.Tensor:
@@ -72,23 +74,22 @@ def edge_residuals(Tcw: torch.Tensor, g: PoseGraph) -> torch.Tensor:
                    @ se3_inverse(g.e_rel))
 
 
-def _lm_step(J: torch.Tensor, r0: torch.Tensor, w: torch.Tensor, ends: torch.Tensor,
-             free: torch.Tensor, lam: torch.Tensor, n_nodes: int,
-             cg_iters: int) -> torch.Tensor:
+def _lm_step(J: torch.Tensor, r0: torch.Tensor, w: torch.Tensor, plan: SegmentPlan,
+             free: torch.Tensor, lam: torch.Tensor, cg_iters: int) -> torch.Tensor:
     """The damped Gauss-Newton step (n_nodes, d) of one LM iteration:
-    both ends' Jacobians J (2E, d, d) (all i ends, then all j ends, as
-    `ends`), residuals r0 (E, d), edge weights w (E,), `free` (n_nodes, 1)
-    nodes. The gradient and the block diagonal of H are summed over the
-    edges' ends in one `index_add_` each; block-Jacobi preconditioned CG
-    solves H delta = -grad with a matrix-free matvec."""
+    both ends' Jacobians J (2E, d, d) (all i ends, then all j ends, the
+    segment-sum plan's targets over its n_nodes), residuals r0 (E, d),
+    edge weights w (E,), `free` (n_nodes, 1) nodes. The gradient and the block
+    diagonal of H are summed over the edges' ends in one `segment_sum`
+    each; block-Jacobi preconditioned CG solves H delta = -grad with a
+    matrix-free matvec."""
     E, d = r0.shape
+    ends, n_nodes = plan.idx, plan.n
     dev, dtype = r0.device, r0.dtype
     eye = torch.eye(d, dtype=dtype, device=dev)
     wJ = torch.cat([w, w])[:, None, None] * J
-    grad = torch.zeros((n_nodes, d), dtype=dtype, device=dev).index_add_(
-        0, ends, torch.einsum("eij,ei->ej", wJ, torch.cat([r0, r0]))) * free
-    D = torch.zeros((n_nodes, d, d), dtype=dtype, device=dev).index_add_(
-        0, ends, torch.einsum("eik,eil->ekl", wJ, J))
+    grad = segment_sum(torch.einsum("eij,ei->ej", wJ, torch.cat([r0, r0])), plan) * free
+    D = segment_sum(torch.einsum("eik,eil->ekl", wJ, J), plan)
     dvec = torch.diagonal(D, dim1=-2, dim2=-1)
     D_damped = D + lam * torch.diag_embed(dvec) + 1e-6 * eye
     # pinned nodes become identity blocks
@@ -98,8 +99,7 @@ def _lm_step(J: torch.Tensor, r0: torch.Tensor, w: torch.Tensor, ends: torch.Ten
     def matvec(x):                                    # H_damped @ x
         u = torch.einsum("eij,ej->ei", J, x[ends])
         u = (u[:E] + u[E:]) * w[:, None]
-        y = torch.zeros((n_nodes, d), dtype=dtype, device=dev).index_add_(
-            0, ends, torch.einsum("eij,ei->ej", J, torch.cat([u, u])))
+        y = segment_sum(torch.einsum("eij,ei->ej", J, torch.cat([u, u])), plan)
         return torch.where(free, y + diag * x, x)
 
     x = torch.zeros((n_nodes, d), dtype=dtype, device=dev)
@@ -127,6 +127,7 @@ def optimize_pose_graph(g: PoseGraph, n_iters: int = 20, lam0: float = 1e-4,
     free = (g.node_valid & ~g.node_fixed)[:, None]
     w = torch.where(g.e_valid, g.e_w, 0.0)
     ends = torch.cat([g.e_i, g.e_j]).long()         # all i ends, then all j ends
+    plan = segment_plan(ends, F)
     rel_inv = se3_inverse(g.e_rel)
     AdM = _adjoint(g.e_rel)
 
@@ -143,7 +144,7 @@ def optimize_pose_graph(g: PoseGraph, n_iters: int = 20, lam0: float = 1e-4,
     for _ in range(n_iters):
         # both ends' Jacobians stacked (2E, 6, 6): J_i, then J_j
         J = torch.cat([_jl_inv(r0), -_jl_inv(-r0) @ AdM])
-        x = _lm_step(J, r0, w, ends, free, lam, F, cg_iters)
+        x = _lm_step(J, r0, w, plan, free, lam, cg_iters)
         T_new = exp_se3(x * free) @ Tcw
         r_new = residuals(T_new)
         accept = cost(r_new) < cost(r0)
@@ -218,6 +219,7 @@ def optimize_pose_graph_sim3(g: Sim3Graph, n_iters: int = 20, lam0: float = 1e-4
     free = (g.node_valid & ~g.node_fixed)[:, None]
     w = torch.where(g.e_valid, g.e_w, 0.0)
     ends = torch.cat([g.e_i, g.e_j]).long()         # all i ends, then all j ends
+    plan = segment_plan(ends, F)
     # tangent coordinates: sigma dropped when the scale is fixed
     coord = (torch.arange(7, device=dev) < (6 if fix_scale else 7)).to(dtype)
     Srel = (g.e_s, g.e_R, g.e_t)
@@ -234,7 +236,7 @@ def optimize_pose_graph_sim3(g: Sim3Graph, n_iters: int = 20, lam0: float = 1e-4
     r0 = _sim3_residual(*ends_of((s, R, t)), Srel)
     for _ in range(n_iters):
         J = _sim3_edge_jacobians(*ends_of((s, R, t)), Srel) * coord   # (2E, 7, 7)
-        x = _lm_step(J, r0, w, ends, free, lam, F, cg_iters)
+        x = _lm_step(J, r0, w, plan, free, lam, cg_iters)
         ds, dR, dt = exp_sim3(x * free * coord)
         S_new = (ds * s, dR @ R, ds[:, None] * torch.einsum("fij,fj->fi", dR, t) + dt)
         r_new = _sim3_residual(*ends_of(S_new), Srel)

@@ -56,11 +56,22 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= m, score, 0.0)
 
 
+def _circle(img: torch.Tensor) -> torch.Tensor:
+    """(16, H, W): the image at each circle offset, edges wrapped (the
+    3-px border is masked out of the score)."""
+    return torch.stack([torch.roll(img, shifts=(-dy, -dx), dims=(0, 1))
+                        for dy, dx in CIRCLE_OFFSETS])
+
+
+def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(H, W) grayscale -> (H, W) float32 corner score (0 = not corner),
+    before NMS: the larger of the brighter and darker arcs' summed margins
+    |C_k - I| - t over qualifying circle pixels."""
+    return _score(img, _circle(img), threshold)
+
+
 def fast_score_dual(img: torch.Tensor, th_high: float, th_low: float):
     """(H, W) float32 grayscale -> (score_high, score_low), each NMS'd
     (reference iniThFAST=20, minThFAST=7)."""
-    circ = torch.stack(
-        [torch.roll(img, shifts=(-dy, -dx), dims=(0, 1))
-         for dy, dx in CIRCLE_OFFSETS]
-    )
+    circ = _circle(img)
     return nms3(_score(img, circ, th_high)), nms3(_score(img, circ, th_low))

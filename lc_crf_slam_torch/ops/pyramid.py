@@ -147,6 +147,11 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torc
     return out2
 
 
+def level_scales(n_levels: int, scale_factor: float) -> torch.Tensor:
+    """(n_levels,) float32 scale of each pyramid level: scale_factor^l."""
+    return torch.tensor([scale_factor**l for l in range(n_levels)], dtype=torch.float32)
+
+
 def features_per_level(n_features: int, n_levels: int,
                        scale_factor: float) -> List[int]:
     """ORB-style per-level feature quota: N_l ∝ (1/s^2)^l, summing to

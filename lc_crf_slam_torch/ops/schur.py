@@ -22,12 +22,13 @@ the device.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import exp_se3, hat_so3
+from .segment_sum import SegmentPlan, segment_plan, segment_sum
 
 
 class BAProblem(NamedTuple):
@@ -117,22 +118,37 @@ def _robust_weights(r, e_w, active, huber_delta):
     return chi2, w, torch.sum(torch.where(active, rho, 0.0))
 
 
-def _sum_into(n: int, idx: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """(n, ...) sums of the per-edge blocks (E, ...) by target index."""
-    out = blocks.new_zeros((n,) + blocks.shape[1:])
-    return out.index_add_(0, idx.long(), blocks)
+class EdgePlans(NamedTuple):
+    """The segment-sum plans of a problem's fixed edge targets: its
+    cameras, its points and its (point, camera) pairs."""
+
+    cam: SegmentPlan
+    pt: SegmentPlan
+    pair: Optional[SegmentPlan]
 
 
-def _partial_blocks(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, huber_delta):
+def edge_plans(prob: BAProblem, C: int, P: int, pairs: bool = True) -> EdgePlans:
+    """The plans of `prob`'s edges over C cameras and P points (and with
+    `pairs` their P * C (point, camera) pairs, which only the dense
+    coupling of `_partial_blocks` sums into), built once per solve: the
+    targets do not change between iterations."""
+    e_cam, e_pt = prob.e_cam.long(), prob.e_pt.long()
+    return EdgePlans(segment_plan(e_cam, C), segment_plan(e_pt, P),
+                     segment_plan(e_pt * C + e_cam, P * C) if pairs else None)
+
+
+def _partial_blocks(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, huber_delta,
+                    plans: EdgePlans):
     """The normal equations' blocks summed over the edges of `prob` (all
     of them, or one rank's shard in `parallel/dist_ba.py`): camera Hcc
     (C, 6, 6) and g_c (C, 6), point Hpp (P, 3, 3) and g_p (P, 3), and the
     coupling W as dense (P, C, 6, 3) blocks.
 
-    Every edge is summed into its blocks. The reference's generic path
-    gathers through a (P, C) table that holds one edge per (point, camera)
-    pair and so drops the others of a pair that a keyframe observes twice;
-    its grid path, which local BA runs, sums them, as here."""
+    Every edge is summed into its blocks, in edge order (`segment_sum`).
+    The reference's generic path gathers through a (P, C) table that holds
+    one edge per (point, camera) pair and so drops the others of a pair
+    that a keyframe observes twice; its grid path, which local BA runs,
+    sums them, as here."""
     C, P = cam_Tcw.shape[0], p_xyz.shape[0]
     r, J_cam, J_pt, z_ok = _edge_residuals(cam, cam_Tcw, p_xyz, prob)
     active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
@@ -141,13 +157,11 @@ def _partial_blocks(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, huber_delta):
     J_cam = J_cam * (~prob.cam_fixed[prob.e_cam]).to(J_cam.dtype)[:, None, None]
     wJc = w[:, None, None] * J_cam
     wJp = w[:, None, None] * J_pt
-    e_cam, e_pt = prob.e_cam, prob.e_pt
-    Hcc = _sum_into(C, e_cam, torch.einsum("eij,eik->ejk", wJc, J_cam))
-    g_c = _sum_into(C, e_cam, torch.einsum("eij,ei->ej", wJc, r))
-    Hpp = _sum_into(P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt))
-    g_p = _sum_into(P, e_pt, torch.einsum("eij,ei->ej", wJp, r))
-    Wpc = _sum_into(P * C, e_pt.long() * C + e_cam.long(),
-                    torch.einsum("eij,eik->ejk", wJc, J_pt)).reshape(P, C, 6, 3)
+    Hcc = segment_sum(torch.einsum("eij,eik->ejk", wJc, J_cam), plans.cam)
+    g_c = segment_sum(torch.einsum("eij,ei->ej", wJc, r), plans.cam)
+    Hpp = segment_sum(torch.einsum("eij,eik->ejk", wJp, J_pt), plans.pt)
+    g_p = segment_sum(torch.einsum("eij,ei->ej", wJp, r), plans.pt)
+    Wpc = segment_sum(torch.einsum("eij,eik->ejk", wJc, J_pt), plans.pair).reshape(P, C, 6, 3)
     return Hcc, g_c, Hpp, g_p, Wpc
 
 
@@ -216,10 +230,11 @@ def solve_ba(cam: Pinhole, prob: BAProblem, n_iters: int = 10,
         return chi2, cost
 
     cam_Tcw, p_xyz = prob.cam_Tcw, prob.p_xyz
+    plans = edge_plans(prob, cam_Tcw.shape[0], p_xyz.shape[0])
     lam = torch.full((), init_lambda, dtype=torch.float32, device=p_xyz.device)
     _, f_old = total_cost(cam_Tcw, p_xyz)
     for _ in range(n_iters):
-        blocks = _partial_blocks(cam, cam_Tcw, p_xyz, prob, huber_delta)
+        blocks = _partial_blocks(cam, cam_Tcw, p_xyz, prob, huber_delta, plans)
         cam_new, p_new = _solve_from_blocks(cam_Tcw, p_xyz, prob, blocks, lam)
         _, f_new = total_cost(cam_new, p_new)
         # a non-finite candidate is never adopted
@@ -235,7 +250,7 @@ def solve_ba(cam: Pinhole, prob: BAProblem, n_iters: int = 10,
 
 
 def _cg_lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta,
-                cg_iters: int):
+                cg_iters: int, plans: EdgePlans):
     """One assembly + matrix-free Schur solve + back-substitution of
     `solve_ba_cg`; returns the candidate (cam_Tcw', p_xyz')."""
     C, P = cam_Tcw.shape[0], p_xyz.shape[0]
@@ -247,10 +262,10 @@ def _cg_lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta,
     wJc = w[:, None, None] * J_cam
     wJp = w[:, None, None] * J_pt
     # block-diagonal Hessians and gradients
-    Hcc = _sum_into(C, e_cam, torch.einsum("eij,eik->ejk", wJc, J_cam))
-    g_c = _sum_into(C, e_cam, torch.einsum("eij,ei->ej", wJc, r))
-    Hpp = _sum_into(P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt))
-    g_p = _sum_into(P, e_pt, torch.einsum("eij,ei->ej", wJp, r))
+    Hcc = segment_sum(torch.einsum("eij,eik->ejk", wJc, J_cam), plans.cam)
+    g_c = segment_sum(torch.einsum("eij,ei->ej", wJc, r), plans.cam)
+    Hpp = segment_sum(torch.einsum("eij,eik->ejk", wJp, J_pt), plans.pt)
+    g_p = segment_sum(torch.einsum("eij,ei->ej", wJp, r), plans.pt)
     # per-edge coupling block B_e = J_cam^T W J_pt, (E, 6, 3)
     B = torch.einsum("eij,eik->ejk", wJc, J_pt)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
@@ -263,11 +278,11 @@ def _cg_lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta,
 
     def to_points(x):
         """sum_e B_e^T x(c(e)) into each edge's point; x (C, 6) -> (P, 3)."""
-        return _sum_into(P, e_pt, torch.einsum("eji,ej->ei", B, x[e_cam]))
+        return segment_sum(torch.einsum("eji,ej->ei", B, x[e_cam]), plans.pt)
 
     def to_cameras(v):
         """sum_e B_e v(p(e)) into each edge's camera; v (P, 3) -> (C, 6)."""
-        return _sum_into(C, e_cam, torch.einsum("eab,eb->ea", B, v[e_pt]))
+        return segment_sum(torch.einsum("eab,eb->ea", B, v[e_pt]), plans.cam)
 
     def matvec(x):
         """(Hcc_d - W Hpp^-1 W^T) x, streamed over the edges."""
@@ -279,7 +294,7 @@ def _cg_lm_step(cam: Pinhole, cam_Tcw, p_xyz, prob: BAProblem, lam, huber_delta,
     # D_c = Hcc_d(c) - sum_e B_e Hpp_inv(p(e)) B_e^T, contracted in two
     # steps of (E, 6, 3) and (E, 6, 6)
     BH = B @ Hpp_inv[e_pt]
-    S_diag = Hcc_d - _sum_into(C, e_cam, BH @ B.transpose(-1, -2))
+    S_diag = Hcc_d - segment_sum(BH @ B.transpose(-1, -2), plans.cam)
     Pinv = torch.linalg.inv_ex(
         torch.where(pin[:, :, None], eye6, S_diag + 1e-6 * eye6))[0]
 
@@ -317,8 +332,8 @@ def solve_ba_cg(cam: Pinhole, prob: BAProblem, n_iters: int = 10, cg_iters: int 
     inverse, and back. The block-Jacobi preconditioner holds the exact
     diagonal 6×6 blocks of S. LM accept/reject and the per-edge Huber delta
     as `solve_ba`; `edge_chi2` comes back as zeros, as in the reference.
-    The sums over edges are float `index_add_`: sequential on the CPU,
-    atomics on a card, where two runs differ in the last bits."""
+    The sums over edges run in edge order (`segment_sum`), so a run on
+    the card repeats bit for bit."""
     if huber_delta_mono is not None:
         huber_delta = torch.where(prob.e_ur >= 0, huber_delta, huber_delta_mono)
 
@@ -328,11 +343,12 @@ def solve_ba_cg(cam: Pinhole, prob: BAProblem, n_iters: int = 10, cg_iters: int 
         return _robust_weights(r, prob.e_w, active, huber_delta)[2]
 
     cam_Tcw, p_xyz = prob.cam_Tcw, prob.p_xyz
+    plans = edge_plans(prob, cam_Tcw.shape[0], p_xyz.shape[0], pairs=False)
     lam = torch.full((), init_lambda, dtype=torch.float32, device=p_xyz.device)
     f_old = total_cost(cam_Tcw, p_xyz)
     for _ in range(n_iters):
         cam_new, p_new = _cg_lm_step(cam, cam_Tcw, p_xyz, prob, lam, huber_delta,
-                                     cg_iters)
+                                     cg_iters, plans)
         f_new = total_cost(cam_new, p_new)
         # a non-finite candidate is never adopted: the robust cost sums
         # active edges only, so an inf in a weakly constrained coordinate

@@ -34,7 +34,7 @@ from ..geometry.camera import Pinhole
 from ..geometry.se3 import exp_se3
 from ..ops.schur import (BAProblem, BAStats, _back_substitute, _camera_step,
                          _partial_blocks, _point_schur, _project_edges,
-                         _robust_weights, _solve_from_blocks)
+                         _robust_weights, _solve_from_blocks, edge_plans)
 from .mesh import Mesh, all_gather_rows, edge_sharding, psum, replicated
 
 _EDGE_FIELDS = ("e_cam", "e_pt", "e_uv", "e_ur", "e_w", "e_valid")
@@ -138,9 +138,10 @@ def dist_solve_ba(cam: Pinhole, prob: BAProblem, mesh: Mesh, n_iters: int = 10,
     cameras and points. Returns the replicated (cam_Tcw, p_xyz, stats);
     `edge_chi2` is zeros over this rank's edges."""
     huber = _huber(prob, huber_delta, huber_delta_mono)
+    plans = edge_plans(prob, prob.cam_Tcw.shape[0], prob.p_xyz.shape[0])
 
     def step(cam_Tcw, p_xyz, lam):
-        blocks = psum(mesh, *_partial_blocks(cam, cam_Tcw, p_xyz, prob, huber))
+        blocks = psum(mesh, *_partial_blocks(cam, cam_Tcw, p_xyz, prob, huber, plans))
         return _solve_from_blocks(cam_Tcw, p_xyz, prob, blocks, lam)
 
     cam_Tcw, p_xyz, cost = _lm(mesh, prob, step, cam, huber, n_iters, init_lambda,
@@ -159,9 +160,10 @@ def dist_solve_ba_blocks(cam: Pinhole, prob: BAProblem, mesh: Mesh, n_iters: int
     local point ids. Returns the replicated cam_Tcw, the points of every
     block in rank order (padded P), and the stats."""
     huber = _huber(prob, huber_delta, huber_delta_mono)
+    plans = edge_plans(prob, prob.cam_Tcw.shape[0], prob.p_xyz.shape[0])
 
     def step(cam_Tcw, p_l, lam):
-        Hcc, g_c, Hpp, g_p, Wpc = _partial_blocks(cam, cam_Tcw, p_l, prob, huber)
+        Hcc, g_c, Hpp, g_p, Wpc = _partial_blocks(cam, cam_Tcw, p_l, prob, huber, plans)
         Hpp_inv, _, S_red, rhs_red = _point_schur(Hpp, g_p, Wpc, lam)
         # the one reduction over the ranks: the camera system
         S_red, Hcc, g_c, rhs_red = psum(mesh, S_red, Hcc, g_c, rhs_red)

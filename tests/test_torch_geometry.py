@@ -149,3 +149,77 @@ def test_undistort_pixels_matches_reference(preset):
     assert float((back - torch.from_numpy(uv)).abs().max()) < 0.05
     assert torch.equal(camera.undistort_pixels(camera.TUM3, torch.from_numpy(uv)),
                        torch.from_numpy(uv))
+
+
+def _helper_case(name):
+    """(reference result, port result) of one public helper on the same
+    numpy inputs."""
+    import lc_crf_slam_tpu.geometry as ref_geometry
+    import lc_crf_slam_torch.geometry as geometry
+
+    rng = np.random.default_rng(len(name))
+    T = np.array(ref_se3.exp_se3(jnp.asarray(_twists(1))))
+    p = rng.normal(0, 1, (len(T), 3)).astype(np.float32)
+    pc = np.concatenate([rng.uniform(-1, 1, (64, 2)), rng.uniform(0.5, 5, (64, 1))],
+                        -1).astype(np.float32)
+    pc[0, 2] = 0.0                                        # the z guard
+    cam_r, cam_t = ref_camera.TUM3, camera.TUM3
+    if name == "vee_so3":
+        W = np.array(ref_se3.hat_so3(jnp.asarray(p)))
+        return ref_se3.vee_so3(jnp.asarray(W)), se3.vee_so3(torch.from_numpy(W))
+    if name == "se3_compose":
+        return (ref_se3.se3_compose(jnp.asarray(T), jnp.asarray(T[::-1])),
+                se3.se3_compose(torch.from_numpy(T), torch.from_numpy(T[::-1].copy())))
+    if name == "se3_apply":
+        return (ref_se3.se3_apply(jnp.asarray(T), jnp.asarray(p)),
+                se3.se3_apply(torch.from_numpy(T), torch.from_numpy(p)))
+    if name in ("project_points", "project_stereo"):
+        ref = getattr(ref_camera, name)(cam_r, jnp.asarray(pc))
+        out = getattr(camera, name)(cam_t, torch.from_numpy(pc))
+        return np.concatenate([np.asarray(ref[0]).ravel(), np.asarray(ref[1])]), \
+            torch.cat([out[0].reshape(-1), out[1]])
+    if name == "unproject_depth":
+        uv, z = pc[:, :2] * 300 + 320, pc[:, 2]
+        return (ref_camera.unproject_depth(cam_r, jnp.asarray(uv), jnp.asarray(z)),
+                camera.unproject_depth(cam_t, torch.from_numpy(uv), torch.from_numpy(z)))
+    if name == "in_image":
+        uv = (rng.uniform(-20, 700, (256, 2))).astype(np.float32)
+        return (ref_camera.in_image(cam_r, jnp.asarray(uv), 4.0),
+                camera.in_image(cam_t, torch.from_numpy(uv), 4.0))
+    if name.startswith("horn_sim3"):
+        fix = name.endswith("fixed")
+        dst = (1.0 if fix else 1.3) * p @ T[2, :3, :3].T + T[2, :3, 3] \
+            + rng.normal(0, 1e-3, p.shape).astype(np.float32)
+        ref = ref_align.horn_sim3(jnp.asarray(p), jnp.asarray(dst), fix_scale=fix)
+        out = align.horn_sim3(torch.from_numpy(p), torch.from_numpy(dst), fix_scale=fix)
+        flat = lambda st: np.concatenate([np.asarray(x).ravel() for x in st])  # noqa: E731
+        return flat(ref), torch.from_numpy(flat([x.numpy() for x in out]))
+    if name == "alignment_residuals":
+        s = np.float32(1.2)
+        R, t = T[3, :3, :3], T[3, :3, 3]
+        args = (p, p[::-1].copy(), np.asarray(s), R, t)
+        return (ref_align.alignment_residuals(*map(jnp.asarray, args)),
+                align.alignment_residuals(*map(torch.from_numpy, args)))
+    assert name == "exports"
+    assert geometry.__all__ == ref_geometry.__all__
+    assert all(hasattr(geometry, n) for n in geometry.__all__)
+    return np.zeros(1), torch.zeros(1)
+
+
+@pytest.mark.parametrize("name", ["vee_so3", "se3_compose", "se3_apply", "project_points",
+                                  "project_stereo", "unproject_depth", "in_image",
+                                  "horn_sim3_fixed", "horn_sim3_scaled",
+                                  "alignment_residuals", "exports"])
+def test_public_helpers_match_reference(name):
+    """The reference's public geometry helpers and `geometry/__init__`'s
+    exports in the port: booleans exactly, floats to 1e-5 (the alignment's
+    Jacobi polar factor against the SVD: 1e-4; a projection also to 1e-6
+    relative, for the point at z = 0 projected through the 1e-9 guard)."""
+    ref, out = _helper_case(name)
+    ref = np.asarray(ref)
+    if ref.dtype == bool:
+        np.testing.assert_array_equal(ref, out.numpy())
+        assert 0 < ref.sum() < ref.size
+    else:
+        np.testing.assert_allclose(ref, out.numpy(), rtol=1e-6 if "project" in name else 0,
+                                   atol=1e-4 if name.startswith("horn") else ATOL)

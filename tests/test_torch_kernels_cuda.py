@@ -94,3 +94,62 @@ def test_fused_cell_kernel_refuses_bad_input(cuda):
         fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat[:, :-1]), 20.0, 7.0)
     with pytest.raises(ValueError):
         fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat.cpu()), 20.0, 7.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hcc_6x6", "g_p_3", "w_6x3_pairs", "sim3_7x7_f64",
+                                  "empty", "one_target"])
+def test_segment_sum_kernel_equals_plain(cuda, case):
+    """The fixed-order segment sum on the card against `index_add_` on CPU
+    copies of the same inputs: bitwise (NaN where the plain version has
+    one), once with a fresh plan and once with a reused one."""
+    from lc_crf_slam_torch.ops import segment_sum as ss
+    from test_torch_segment_sum import bitwise, make_case
+
+    n, idx, vals = make_case(case)
+    ref = ss.segment_sum_plain(n, idx, vals)
+    plan = ss.segment_plan(idx.to(cuda), n)
+    before = ss.launches
+    out = ss.segment_sum(vals.to(cuda), ss.segment_plan(idx.to(cuda), n))
+    again = ss.segment_sum(vals.to(cuda), plan)
+    torch.cuda.synchronize()
+    assert ss.launches == before + (2 if idx.numel() else 0)
+    nan = torch.isnan(ref)
+    for o in (out.cpu(), again.cpu()):
+        assert torch.equal(torch.isnan(o), nan)
+        assert bitwise(torch.where(nan, 0.0, o).to(ref.dtype),
+                       torch.where(nan, 0.0, ref).to(ref.dtype))
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_refuses_bad_input(cuda):
+    from lc_crf_slam_torch.ops import segment_sum as ss
+
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    runs = ss.segment_plan(idx, 2).runs
+    with pytest.raises(ValueError):
+        ss.segment_sum_cuda(2, torch.zeros((4, 3), dtype=torch.float16, device=cuda), runs)
+    with pytest.raises(ValueError):
+        ss.segment_sum_cuda(2, torch.zeros((4, 65), device=cuda), runs)
+    with pytest.raises(ValueError):
+        ss.segment_sum_cuda(2, torch.zeros((3, 3), device=cuda), runs)
+    with pytest.raises(ValueError):
+        ss.segment_sum_cuda(2, torch.zeros((3, 4), device=cuda).t(), runs)
+    with pytest.raises(ValueError):     # a plan built on the CPU has no runs
+        ss.segment_sum(torch.zeros((4, 3), device=cuda), ss.segment_plan(idx.cpu(), 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_idx", [300, 100_000])
+def test_scatter_set_last_write_wins_on_the_card(cuda, n_idx):
+    """Duplicate writes to one row: the last one wins on the card as on
+    the CPU, so two runs give the same bits."""
+    from lc_crf_slam_torch._ops import scatter_set
+
+    rng = np.random.default_rng(n_idx)
+    arr = torch.tensor(rng.normal(0, 1, (50, 3)).astype(np.float32))
+    idx = torch.tensor(rng.integers(0, 60, n_idx))
+    val = torch.tensor(rng.normal(0, 1, (n_idx, 3)).astype(np.float32))
+    ref = scatter_set(arr, idx, val)
+    for _ in range(3):
+        assert torch.equal(scatter_set(arr.to(cuda), idx.to(cuda), val.to(cuda)).cpu(), ref)

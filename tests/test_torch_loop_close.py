@@ -12,6 +12,7 @@ the integer state exactly and poses and points to 1e-3 (64- and
 48-iteration float32 CG solves summed in another order)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -351,6 +352,28 @@ def test_rejected_candidates_leave_the_map(loop_state):
     assert [st for _, st in port._consistent_groups] == [3, 3, 3, 3]
 
 
+def test_try_close_loop_per_frame_closes_as_reference(loop_state):
+    """The per-frame path (`pre=None`: the system detects for its current
+    reference keyframe and fetches the detection itself), three frames in
+    a row on the drifted map: the same log, map and re-anchored tracker as
+    the reference's, and the first global-BA slice run by the frame's pump."""
+    ref, port = _both_systems(loop_state)
+    for s in (ref, port):
+        for _ in range(CFG.loop.consistency_needed):
+            assert not s.loop_log
+            s._try_close_loop()
+        s._pump_gba()
+    assert port.n_detect_loops == CFG.loop.consistency_needed
+    assert len(port.loop_log) == 1 and port.loop_log[0]["kf"] == loop_state["kf"]
+    for a, b in zip(ref.loop_log, port.loop_log):
+        assert (a["kf"], a["cand"], a["s_corr"]) == (b["kf"], b["cand"], b["s_corr"])
+        assert a["inliers"] == b["inliers"]
+    np.testing.assert_allclose(np.asarray(ref.ts.Tcw), port.ts.Tcw.numpy(), atol=STATE_TOL)
+    assert port._gba_slices_run == ref._gba_slices_run == 1
+    assert port._gba_pending == ref._gba_pending
+    _maps_close(ref, port)
+
+
 # ---- end to end ------------------------------------------------------------
 
 @pytest.mark.slow
@@ -403,3 +426,231 @@ def test_pan_loop_closes_as_reference_in_throughput_mode():
     assert_poses_close(poses_ref, poses_port, 3e-3, 3e-3, frames=np.arange(n - 1) < chunk)
     assert np.isfinite(tp).all() and ate_ref < 0.35 and ate_port < 0.35
     assert abs(ate_ref - ate_port) < 0.1
+
+
+def _run_per_frame(world, n, cfg):
+    """Both packages' `track_rgbd` over world frames 0..n-1 with mapping,
+    the CRF and loop closing on, the port making the reference's draws:
+    (reference system, port system)."""
+    from lc_crf_slam_tpu.models.system import SLAMSystem as Ref
+    from torch_parity import CAM, CAM_REF, render
+
+    ref = Ref(CAM_REF, cfg, enable_mapping=True, enable_crf=True)
+    port = SLAMSystem(CAM, cfg, enable_mapping=True, enable_crf=True, device="cpu")
+    use_reference_draws(port)
+    for k in range(n):
+        g, d = render(world, k)
+        ref.track_rgbd(g, d, k / 30.0)
+        port.track_rgbd(g, d, k / 30.0)
+    ref.flush_stats()
+    port.flush_stats()
+    return ref, port
+
+
+def test_pan_frame1_pose_is_the_reference_op_by_op():
+    """Where the per-frame runs of the QVGA pan world part: frame 1's
+    `track_step`, from the reference's own state. The reference's pose
+    there depends on XLA's fusion: jitted and op by op (`jax.disable_jit`)
+    it differs by ~1.5e-4 on the same inputs. The port, on those inputs
+    and with the reference's draws, gives the same integers (associations,
+    inliers) as both and the op-by-op pose to 1e-5."""
+    from lc_crf_slam_tpu.models import tracking as ref_tracking
+    from lc_crf_slam_tpu.models.frame import build_frame as ref_build_frame
+    from lc_crf_slam_tpu.models.mapstate import empty_map as ref_empty_map
+    from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
+    from lc_crf_slam_torch.models import tracking
+    from torch_parity import CAM, CAM_REF, PAN_WORLD, reference_consensus_sampler, render
+
+    world = RefWorld(cam=CAM_REF, n_frames=130, **PAN_WORLD)   # the pan spans n_frames
+    cfg = SLAMConfig()
+    build = jax.jit(ref_build_frame, static_argnums=(0, 1))
+    f0, f1 = (build(CAM_REF, cfg, *map(jnp.asarray, render(world, k))) for k in (0, 1))
+    # frame 0 initialises the map; frame 1's track_step is handed its state
+    m, ts = jax.jit(ref_tracking.initialize_map, static_argnums=(0, 1))(
+        cfg, CAM_REF, ref_empty_map(cfg), f0, jnp.asarray(0.0))
+    args = (cfg, CAM_REF, m, ts, f1)
+    fused_out = jax.jit(ref_tracking.track_step, static_argnums=(0, 1))(*args)
+    with jax.disable_jit():
+        eager = ref_tracking.track_step(*args)
+    ts_p, _, info = tracking.track_step(
+        cfg, CAM, convert.map_to_torch(m), convert.track_to_torch(ts),
+        convert.frame_to_torch(f1), reference_consensus_sampler(1))
+    fused, unfused = np.asarray(fused_out[0].Tcw), np.asarray(eager[0].Tcw)
+    print("frame 1 Tcw: reference jitted vs op by op", np.abs(fused - unfused).max(),
+          "port vs op by op", np.abs(ts_p.Tcw.numpy() - unfused).max())
+    assert np.abs(fused - unfused).max() > 1e-4
+    np.testing.assert_allclose(ts_p.Tcw.numpy(), unfused, atol=1e-5)
+    for out in (fused_out, eager):
+        np.testing.assert_array_equal(np.asarray(out[0].last_obs), ts_p.last_obs.numpy())
+        assert int(out[2].n_inliers) == int(info.n_inliers)
+
+
+@pytest.mark.slow
+def test_pan_loop_closes_as_reference_per_frame(tmp_path):
+    """The reference's default-config loop world (1.2-turn pan over a
+    textured wall, 1.5 cm depth noise, QVGA, 130 frames) one frame at a
+    time through the port's `track_rgbd` with the reference's draws,
+    against the reference run op for op (XLA's backend optimisations off,
+    tests/ref_unfused_worker.py, in its own process meanwhile). Whether
+    this world's revisit closes per frame turns on rounding: the jitted
+    reference closes at keyframe 41 (ATE 0.084 m), the op-by-op one does
+    not (ATE 0.085 m), and the two part on frame 1's pose
+    (`test_pan_frame1_pose_is_the_reference_op_by_op`). The port holds to
+    the op-by-op reference: the same inliers and keyframe decisions on
+    every frame until float order parts them (frame 26; at least the
+    first 20), no lost frame, the same loop outcome and, where a loop
+    closes in both, the same closure; the budget drained. Keyframes and
+    ATE are printed: after the parting they are each run's own (the
+    port's ATE, 0.110 m, is above the reference test's 0.10 m bar:
+    ROADMAP.md queue 3)."""
+    import subprocess
+    import sys
+
+    from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
+    from torch_parity import CAM, CAM_REF, PAN_WORLD, render
+
+    n = 130
+    out = tmp_path / "reference.npz"
+    env = dict(os.environ, XLA_FLAGS="--xla_backend_optimization_level=0")
+    worker = subprocess.Popen(
+        [sys.executable, os.path.join(os.path.dirname(__file__), "ref_unfused_worker.py"),
+         str(out), str(n)], env=env)
+    try:
+        world = RefWorld(cam=CAM_REF, n_frames=n, **PAN_WORLD)
+        port = SLAMSystem(CAM, SLAMConfig(), enable_mapping=True, enable_crf=True,
+                          device="cpu")
+        use_reference_draws(port)
+        for k in range(n):
+            port.track_rgbd(*render(world, k), k / 30.0)
+        port.flush_stats()
+        assert worker.wait(timeout=3600) == 0
+    finally:
+        worker.kill()
+    ref = np.load(out)
+    stats = port.stats[1:]
+    inliers = np.array([s["n_inliers"] for s in stats])
+    need_kf = np.array([bool(s["need_kf"]) for s in stats])
+    same = (inliers == ref["n_inliers"]) & (need_kf == ref["need_kf"])
+    parted = int(np.argmin(same)) if not same.all() else len(same)
+    ate_port = _ate(port, world)
+    print("parted at frame", parted + 1, "keyframes", len(ref["kf_log"]), len(port.kf_log),
+          "loops", ref["loop_log"].tolist(), port.loop_log, "ATE", float(ref["ate"]), ate_port)
+    assert parted + 1 >= 20
+    assert len(port.loop_log) == len(ref["loop_log"])
+    for (kf, cand, n_inl), b in zip(ref["loop_log"], port.loop_log):
+        assert (kf, cand) == (b["kf"], b["cand"]) and abs(n_inl - b["inliers"]) <= 5
+    assert port._gba_pending is None
+    assert np.all(np.array([s["status"] for s in stats]) == 1)
+    assert np.all(ref["status"] == 1)
+
+
+def _ate(slam, world):
+    from lc_crf_slam_tpu.utils.evaluate import evaluate_ate
+
+    ts, poses = slam.get_trajectory()
+    gt_t, gt = world.groundtruth()
+    return evaluate_ate(ts, np.asarray(poses), gt_t, gt).rmse
+
+
+def _mover_gates(world, slam, n, covisibility):
+    """tests/test_loopclosure_render_e2e.py:99-144 on one package's run
+    of the mover sweep: the gates that fail, and what was measured."""
+    m = slam.map
+    alive = np.asarray(m.p_alive)
+    gtd = world.bb_gt_dynamic(np.asarray(m.p_xyz), n=n) & alive
+    judged = gtd & (np.asarray(m.p_visible) >= 4)
+    nk = int(m.n_kfs)
+    W = np.asarray(covisibility(m))[:nk, :nk]
+    ate = _ate(slam, world)
+    lost = sum(1 for s in slam.stats if s.get("status", 1) != 1)
+    seen = dict(loops=[(a["kf"], a["cand"]) for a in slam.loop_log], ate=ate, lost=lost,
+                live=int(alive.sum()), mover=int(gtd.sum()), judged=int(judged.sum()),
+                early_late=float(W[:4, nk - 4:].max()))
+    failed = [name for name, ok in (
+        ("revisit", bool(slam.loop_log) or (nk >= 10 and W[:4, nk - 4:].max() >= 12)),
+        ("ate", ate < 0.10), ("lost", lost <= 8),
+        ("judged", judged.sum() <= 0.08 * max(alive.sum(), 1)),
+        ("mover", gtd.sum() <= 0.20 * max(alive.sum(), 1)),
+        ("live", alive.sum() >= 55)) if not ok]
+    return failed, seen
+
+
+@pytest.mark.slow
+def test_sweep_with_mover_matches_reference():
+    """tests/test_loopclosure_render_e2e.py's `_run(billboard=True)`: a QVGA
+    sweep (1600 points, seed 3) that revisits its start sector with a
+    textured billboard mover there, 96 frames, `min_total_matches=25` and
+    the reverse neighbour fuse off, through both packages' `track_rgbd`
+    with the reference's draws. Both pass the reference test's gates
+    (:99-144): a loop or early-late covisibility reconnection, ATE < 0.10
+    m, <= 8 lost frames, judged mover points <= 8% and all mover points <=
+    20% of the live points, >= 55 live points. The runs part by float
+    order after ~70 frames (one keyframe decision), so which of the two
+    healthy revisit outcomes each takes is printed, not compared."""
+    from lc_crf_slam_tpu.models.mapstate import covisibility as ref_covisibility
+    from lc_crf_slam_torch.models.mapstate import covisibility
+    from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
+    from torch_parity import CAM_REF
+
+    n = 96
+    world = RefWorld(cam=CAM_REF, n_frames=n, n_static=1600, n_dynamic=0, seed=3,
+                     trajectory="sweep", billboard=True, bb_speed=0.012,
+                     bb_center0=(-0.5, 0.0, 2.4), bb_size=(0.9, 1.2))
+    cfg = SLAMConfig(loop=LoopConfig(min_total_matches=25))
+    cfg = cfg.replace(mapping=dataclasses.replace(
+        cfg.mapping, fuse_reverse_neighbors=0, interrupt_fuse_reverse_neighbors=0))
+    ref, port = _run_per_frame(world, n, cfg)
+    failed_ref, seen_ref = _mover_gates(world, ref, n, ref_covisibility)
+    failed, seen = _mover_gates(world, port, n, covisibility)
+    print("reference", seen_ref, "port", seen)
+    assert failed_ref == [] and failed == [], (failed_ref, failed)
+
+
+def _global_ba_on_the_cards_map(path=None):
+    """Three global-BA slices of both packages on chip_smoke.py's
+    BA_MAP_FILE (or a map that script wrote to `path`): (the file, the
+    reference's keyframe ATE after each slice, the port's, the largest
+    pose difference after each slice). A new map's `ref_kf_ate` is the
+    second of these."""
+    import chip_smoke
+    from lc_crf_slam_tpu.models.mapstate import MapState as RefMap
+    from lc_crf_slam_torch.config import SLAMConfig as PortConfig
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    cfg = PortConfig()
+    m, z = chip_smoke.load_ba_map(cfg, path or chip_smoke.BA_MAP_FILE)
+    m_ref = RefMap(**{f: jnp.asarray(a) for f, a in convert.to_numpy(m).items()})
+    world = SyntheticWorld(cam=TUM3, n_frames=chip_smoke.LOOP_FRAMES, **chip_smoke.LOOP_WORLD)
+    gt_t, gt = world.groundtruth()
+    which = z["ate_kfs"]
+
+    def ate(Tcw):
+        return chip_smoke.keyframe_ate(np.asarray(Tcw)[:len(which)], z["kf_time"][:len(which)],
+                                       which, gt_t, gt)
+
+    ates_ref, ates, dpose = [], [], []
+    for _ in range(cfg.loop.gba_total_iters // cfg.loop.gba_slice_iters):
+        m_ref = ref_lc.global_ba(SLAMConfig(), REF_TUM3, m_ref, n_iters=cfg.loop.gba_slice_iters)
+        m = lc.global_ba(cfg, TUM3, m, n_iters=cfg.loop.gba_slice_iters)
+        ates_ref.append(ate(m_ref.kf_Tcw))
+        ates.append(ate(m.kf_Tcw.numpy()))
+        dpose.append(float(np.abs(np.asarray(m_ref.kf_Tcw) - m.kf_Tcw.numpy()).max()))
+    return z, ates_ref, ates, dpose
+
+
+def test_global_ba_on_the_cards_loop_map():
+    """The map the card held just before the first global-BA slice of
+    chip_smoke.py's per-frame loop phase (the 640x480 pan world, 130
+    frames through `track_rgbd`; tests/data/loop_per_frame_ba_map.npz,
+    written by that script) through both packages' `global_ba`, the
+    budget's three slices: the port on the CPU holds the reference's poses
+    to 1e-3 and its keyframes' ATE to 0.5 mm, and the reference's ATE
+    after each slice is the one the file records, against which
+    chip_smoke.py gates the card's. On this map the reference's global BA
+    raises the keyframes' ATE (from 0.0281 m to 0.0444 m)."""
+    z, ates_ref, ates, dpose = _global_ba_on_the_cards_map()
+    print("reference", ates_ref, "port", ates, "max pose diff", dpose)
+    np.testing.assert_allclose(ates_ref, z["ref_kf_ate"], rtol=1e-4)
+    np.testing.assert_allclose(ates, ates_ref, atol=5e-4)
+    assert max(dpose) < STATE_TOL
+    assert ates_ref[-1] > 1.1 * ates_ref[0]

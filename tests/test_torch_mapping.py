@@ -289,3 +289,68 @@ def test_mapping_step(stages):
     out = mapping.mapping_step(SLICE_CFG, CAM, _port(stages["in"]),
                                torch.tensor(int(stages["kf"])))
     assert_map_equal(stages["step"], out, float_tol=1e-3, rtol=1e-3)
+
+
+class _SumRecorder:
+    """Stands in for a module's `segment_sum` and keeps, per call, the
+    number of targets and the plan it was handed."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, vals, plan):
+        self.calls.append((len(vals), plan))
+        return self.fn(vals, plan)
+
+
+@pytest.mark.parametrize("solver", ["solve_ba", "solve_ba_cg"])
+def test_ba_sums_run_through_segment_sum(solver, monkeypatch):
+    """Every edge sum of both solvers goes through `segment_sum` with a
+    plan built once per solve (one per target space), and the result holds
+    to the reference at the tolerances of the tests above."""
+    from lc_crf_slam_tpu.geometry.camera import TUM3 as REF_TUM3
+    from lc_crf_slam_torch.geometry.camera import TUM3
+
+    rec = _SumRecorder(schur.segment_sum)
+    monkeypatch.setattr(schur, "segment_sum", rec)
+    prob, _, _, nc, npts = make_problem(pix_noise=0.3, mono_frac=0.3, seed=9)
+    tprob = convert.ba_problem_to_torch(prob)
+    if solver == "solve_ba":
+        ref_cam, ref_p, _ = ref_schur.solve_ba(CAM_REF, prob, n_iters=4)
+        cam_o, p_o, _ = schur.solve_ba(CAM, tprob, n_iters=4)
+        np.testing.assert_allclose(np.asarray(ref_cam)[:nc], cam_o.numpy()[:nc], atol=1e-4)
+        d = np.abs(np.asarray(ref_p)[:npts] - p_o.numpy()[:npts])
+        assert np.percentile(d, 99) < 1e-3 and d.max() < 2e-2
+        per_iter, n_plans = 5, 3
+    else:
+        ref_cam, ref_p, _ = ref_schur.solve_ba_cg(REF_TUM3, prob, n_iters=2)
+        cam_o, p_o, _ = schur.solve_ba_cg(TUM3, tprob, n_iters=2)
+        np.testing.assert_allclose(np.asarray(ref_cam), cam_o.numpy(), atol=1e-3, rtol=1e-3)
+        np.testing.assert_allclose(np.asarray(ref_p), p_o.numpy(), atol=1e-3, rtol=1e-3)
+        per_iter, n_plans = 4 + 1 + 1 + 2 * 48 + 1, 2
+    n_iters = 4 if solver == "solve_ba" else 2
+    assert len(rec.calls) == per_iter * n_iters
+    assert all(plan.idx.shape == (E,) for E, plan in rec.calls)
+    assert len({id(plan) for _, plan in rec.calls}) == n_plans
+
+
+@pytest.mark.parametrize("shape", [(50,), (50, 3)])
+def test_scatter_set_last_write_wins(shape):
+    """`scatter_set` with many writes to each row and out-of-range
+    indices: the last write of each row wins, as `.at[].set(mode="drop")`
+    does on the CPU, where the reference runs its tests (the port's rule on
+    every device: tests/test_torch_kernels_cuda.py holds the card to it)."""
+    from lc_crf_slam_torch._ops import scatter_set
+
+    rng = np.random.default_rng(5)
+    arr = rng.integers(0, 100, shape).astype(np.int32)
+    idx = rng.integers(0, 60, 300).astype(np.int32)
+    val = rng.integers(-50, 150, (300,) + shape[1:]).astype(np.int32)
+    ref = jnp.asarray(arr).at[jnp.asarray(idx)].set(jnp.asarray(val), mode="drop")
+    out = scatter_set(_t(arr), _t(idx), _t(val))
+    np.testing.assert_array_equal(np.asarray(ref), out.numpy())
+    expect = arr.copy()
+    for i, v in zip(idx, val):
+        if i < shape[0]:
+            expect[i] = v
+    np.testing.assert_array_equal(expect, out.numpy())

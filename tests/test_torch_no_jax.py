@@ -35,6 +35,7 @@ torch.set_num_threads(2)
 import lc_crf_slam_torch
 names = [m.name for m in pkgutil.walk_packages(lc_crf_slam_torch.__path__,
                                                "lc_crf_slam_torch.")]
+assert "lc_crf_slam_torch.ops.segment_sum" in names, names
 for name in names:
     importlib.import_module(name)
 from lc_crf_slam_torch.config import (LoopConfig, MapConfig, ORBConfig, SLAMConfig,

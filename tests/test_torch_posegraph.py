@@ -94,3 +94,35 @@ def test_optimize_pose_graph_matches_reference(n_iters):
          )[:3, 3])
     if n_iters == 20:
         assert err(out) < 0.2 * err(Tcw0), (err(Tcw0), err(out))
+
+
+@pytest.mark.parametrize("graph", ["se3", "sim3"])
+def test_pose_graph_sums_run_through_segment_sum(graph, monkeypatch):
+    """The gradient, the block diagonal and every CG matvec of both pose
+    graphs go through `segment_sum`, all with the one plan of the edges'
+    ends built per optimisation; the poses hold to the reference at the
+    tolerance of the tests above (and of tests/test_torch_sim3_loop.py)."""
+    calls = []
+    inner = pg.segment_sum
+
+    def recorder(vals, plan):
+        calls.append(plan)
+        return inner(vals, plan)
+
+    monkeypatch.setattr(pg, "segment_sum", recorder)
+    n_iters, cg_iters = 3, 64
+    if graph == "se3":
+        g_ref, _ = drifted_chain()
+        ref = [np.asarray(ref_pg.optimize_pose_graph(g_ref, n_iters=n_iters))]
+        out = [pg.optimize_pose_graph(convert.pose_graph_to_torch(g_ref),
+                                      n_iters=n_iters).numpy()]
+    else:
+        from test_torch_sim3_loop import scale_drift_graph
+
+        g_ref, g = scale_drift_graph()
+        ref = [np.asarray(a) for a in ref_pg.optimize_pose_graph_sim3(g_ref, n_iters=n_iters)]
+        out = [a.numpy() for a in pg.optimize_pose_graph_sim3(g, n_iters=n_iters)]
+    for a, b in zip(ref, out):
+        np.testing.assert_allclose(a, b, atol=POSE_TOL, rtol=0)
+    assert len(calls) == n_iters * (2 + cg_iters)
+    assert calls[0] is not None and all(p is calls[0] for p in calls)

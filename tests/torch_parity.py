@@ -33,6 +33,11 @@ SLICE_CFG = SLAMConfig(loop=LoopConfig(enabled=False),
 # the chunked path: the default configuration (loop detection on) at the
 # same small point capacity
 SEQ_CFG = SLAMConfig(map=MapConfig(max_points=4096))
+# the reference's default-config loop world (tests/test_loop_throughput_e2e.py:34-43):
+# a 1.2-turn pan over a textured wall with 1.5 cm depth noise
+PAN_WORLD = dict(n_static=900, n_dynamic=0, seed=5, trajectory="pan", wall=True,
+                 pan_leadin=0.1, pan_turns=1.2, pan_translation=0.25,
+                 render_depth_noise=0.015)
 
 
 def render(world, k):
