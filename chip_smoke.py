@@ -145,14 +145,21 @@
    name and power limit.
 16. Segment-sum kernel (`csrc/segment_sum.cu`, run after the loop
    phase): `segment_sum` on the card against `segment_sum_plain`
-   (`index_add_`) on CPU copies of the same inputs, bitwise, at local
-   BA's Hcc (E, 6, 6), Hpp (E, 3, 3) and W (E, 6, 3) sums over the loop
+   (`index_add_`) on CPU copies of the same inputs, bitwise, at BA's
+   Hcc (E, 6, 6), Hpp (E, 3, 3) and W (E, 6, 3) sums over the loop
    phase's final map (C = 320 keyframes, P = 32768 points, E = 327680
-   edge slots), the SE3 and Sim(3) pose graphs' block diagonals D (2E,
-   6, 6) and (2E, 7, 7) over that map's essential graph (float32, and
-   float64 7x7), an empty edge list and one target hit by every edge;
-   each timed with CUDA events beside `index_add_` with the default
-   algorithms (float atomics) and with deterministic ones, and its plan.
+   edge slots) and `solve_ba_cg`'s matvec halves over it (E, 3) -> P and
+   (E, 6) -> C; local BA's Hcc, g_c, Hpp, g_p and W over the newest
+   keyframe's window at its capacity (C = 32, P = 4096, E = 32768); the
+   SE3 and Sim(3) pose graphs' block diagonals D (2E, 6, 6) and (2E, 7,
+   7) over that map's essential graph (float32, and float64 7x7) and the
+   SE3 graph's gradient and matvec (2E, 6); an empty edge list and one
+   target hit by every edge. Each timed with CUDA events, device-only
+   and host-bound, beside `index_add_` with the default algorithms
+   (float atomics) and with deterministic ones, and its plan; the device
+   kernels of one call counted in a `torch.profiler` window.
+   `python3 chip_smoke.py --segment-sum` runs this step alone, on the map
+   of tests/data/loop_per_frame_ba_map.npz.
 17. Per-frame loop phase: the loop phase's 130 frames through
    `track_rgbd`, default SLAMConfig, mapping and the CRF on. The
    reference test's gates (tests/test_loopclosure_render_e2e.py:93-97):
@@ -1493,42 +1500,95 @@ def segment_sum_cases(cam, cfg, loop_map) -> dict:
     """{shape: (targets, idx, values)} on the card: the shapes of the port's
     edge sums (see the module docstring, step 16)."""
     from lc_crf_slam_torch.models.loopclosing import _essential_edges, _map_ba_problem
+    from lc_crf_slam_torch.models.mapping import _build_problem, _select_window
     from lc_crf_slam_torch.models.mapstate import covisibility
     from lc_crf_slam_torch.ops.schur import _edge_residuals, _robust_weights
 
     m = type(loop_map)(*(t.to("cuda") for t in loop_map))
-    prob = _map_ba_problem(cfg, m)
-    C, P = m.kf_Tcw.shape[0], m.p_xyz.shape[0]
-    # the per-edge blocks of BA's normal equations, as ops/schur.py forms them
-    r, J_cam, J_pt, z_ok = _edge_residuals(cam, m.kf_Tcw, m.p_xyz, prob)
-    active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
-    _, w, _ = _robust_weights(r, prob.e_w, active, cfg.local_ba.huber_delta)
-    J_cam = J_cam * (~prob.cam_fixed[prob.e_cam]).to(J_cam.dtype)[:, None, None]
-    wJc, wJp = w[:, None, None] * J_cam, w[:, None, None] * J_pt
-    e_cam, e_pt = prob.e_cam.long(), prob.e_pt.long()
-    # the pose graphs' ends: the essential graph of a closure of the newest
-    # keyframe on keyframe 0; random Jacobian blocks from a seed
-    kf = torch.full((), int(m.n_kfs) - 1, dtype=torch.int32, device="cuda")
-    e_i, e_j, _, _ = _essential_edges(cfg, m, covisibility(m), kf, torch.zeros_like(kf))
-    ends = torch.cat([e_i, e_j]).long()
     rng = np.random.default_rng(8)
 
+    def blocks(prob):
+        """BA's per-edge (Hcc, g_c, Hpp, g_p, W, B) blocks, as ops/schur.py
+        forms them, and the edges' cameras and points."""
+        r, J_cam, J_pt, z_ok = _edge_residuals(cam, prob.cam_Tcw, prob.p_xyz, prob)
+        active = prob.e_valid & z_ok & prob.p_valid[prob.e_pt]
+        _, w, _ = _robust_weights(r, prob.e_w, active, cfg.local_ba.huber_delta)
+        J_cam = J_cam * (~prob.cam_fixed[prob.e_cam]).to(J_cam.dtype)[:, None, None]
+        wJc, wJp = w[:, None, None] * J_cam, w[:, None, None] * J_pt
+        B = torch.einsum("eij,eik->ejk", wJc, J_pt)
+        return (torch.einsum("eij,eik->ejk", wJc, J_cam), torch.einsum("eij,ei->ej", wJc, r),
+                torch.einsum("eij,eik->ejk", wJp, J_pt), torch.einsum("eij,ei->ej", wJp, r),
+                B, prob.e_cam.long(), prob.e_pt.long())
+
+    # the whole map: C = 320 keyframes, P = 32768 points, 327680 edge slots
+    prob = _map_ba_problem(cfg, m)
+    C, P = m.kf_Tcw.shape[0], m.p_xyz.shape[0]
+    Hcc, g_c, Hpp, _, B, e_cam, e_pt = blocks(prob)
+    # solve_ba_cg's matvec halves over it, on random x (C, 6) and v (P, 3)
+    x = torch.as_tensor(rng.normal(0, 1, (C, 6)), dtype=torch.float32, device="cuda")
+    v = torch.as_tensor(rng.normal(0, 1, (P, 3)), dtype=torch.float32, device="cuda")
+    # local BA's window of the newest keyframe at its capacity: 32 cameras
+    # of 1024 slots, 4096 points
+    kf = torch.full((), int(m.n_kfs) - 1, dtype=torch.int32, device="cuda")
+    lprob = _build_problem(cfg, m, *_select_window(cfg, m, kf))
+    lC, lP = lprob.cam_Tcw.shape[0], lprob.p_xyz.shape[0]
+    lHcc, lg_c, lHpp, lg_p, lB, l_cam, l_pt = blocks(lprob)
+    # the pose graphs' ends: the essential graph of a closure of the newest
+    # keyframe on keyframe 0; random Jacobian blocks from a seed (all live
+    # for D; the gradient and matvec weighted by the edges' validity, as
+    # models/posegraph.py sums them)
+    e_i, e_j, _, e_valid = _essential_edges(cfg, m, covisibility(m), kf,
+                                            torch.zeros_like(kf))
+    ends = torch.cat([e_i, e_j]).long()
+    w_ends = torch.cat([e_valid, e_valid]).to(torch.float32)[:, None]
+
+    def rand(shape, dtype=torch.float32):
+        return torch.as_tensor(rng.normal(0, 1, shape), dtype=dtype, device="cuda")
+
     def jtj(d, dtype):
-        J = torch.as_tensor(rng.normal(0, 1, (ends.shape[0], d, d)), dtype=dtype,
-                            device="cuda")
+        J = rand((ends.shape[0], d, d), dtype)
         return torch.einsum("eik,eil->ekl", J, J)
 
-    g_c = torch.einsum("eij,ei->ej", wJc, r)
     return {
-        "Hcc": (C, e_cam, torch.einsum("eij,eik->ejk", wJc, J_cam)),
-        "Hpp": (P, e_pt, torch.einsum("eij,eik->ejk", wJp, J_pt)),
-        "W": (P * C, e_pt * C + e_cam, torch.einsum("eij,eik->ejk", wJc, J_pt)),
+        "Hcc": (C, e_cam, Hcc),
+        "Hpp": (P, e_pt, Hpp),
+        "W": (P * C, e_pt * C + e_cam, B),
         "se3_D": (C, ends, jtj(6, torch.float32)),
         "sim3_D": (C, ends, jtj(7, torch.float32)),
         "sim3_D_float64": (C, ends, jtj(7, torch.float64)),
         "empty": (C, e_cam[:0], g_c[:0]),
         "one_target": (C, torch.full_like(e_cam, 5), g_c),
+        "local_Hcc": (lC, l_cam, lHcc),
+        "local_g_c": (lC, l_cam, lg_c),
+        "local_Hpp": (lP, l_pt, lHpp),
+        "local_g_p": (lP, l_pt, lg_p),
+        "local_W": (lP * lC, l_pt * lC + l_cam, lB),
+        "to_points": (P, e_pt, torch.einsum("eji,ej->ei", B, x[e_cam])),
+        "to_cameras": (C, e_cam, torch.einsum("eab,eb->ea", B, v[e_pt])),
+        "se3_grad": (C, ends, rand((ends.shape[0], 6)) * w_ends),
+        "se3_matvec": (C, ends, rand((ends.shape[0], 6)) * w_ends),
     }
+
+
+def device_kernels(fn, *args, calls: int = 4, windows: int = 3) -> list:
+    """The names of the device kernels one call of fn(*args) runs: a
+    torch.profiler window around `calls` calls (after one outside it),
+    its device events divided among them; a window that shows no device
+    activity is tried again, up to `windows` times ([] if none shows any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        names = sorted(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if names:
+            return names[::calls] if len(names) % calls == 0 else names
+    return []
 
 
 def check_segment_kernel(cam, cfg, loop_map) -> dict:
@@ -1552,27 +1612,38 @@ def check_segment_kernel(cam, cfg, loop_map) -> dict:
             raise AssertionError(f"segment_sum kernel != plain version on {name}: max abs "
                                  f"err {err}")
         k = flat.shape[1]
-        ms, _ = cuda_ms(ss.segment_sum_cuda, n, flat, plan.runs)
+        ms, host_ms = cuda_ms(ss.segment_sum_cuda, flat, plan.kernel)
         plan_ms, _ = cuda_ms(ss.segment_plan, idx, n)
-        plain_ms, _ = cuda_ms(ss.segment_sum_plain, n, idx, flat)
+        plain_ms, plain_host_ms = cuda_ms(ss.segment_sum_plain, n, idx, flat)
         torch.use_deterministic_algorithms(True)
         try:
             det_ms, _ = cuda_ms(ss.segment_sum_plain, n, idx, flat, batches=3, reps=2)
         finally:
             torch.use_deterministic_algorithms(False)
+        kernels = device_kernels(ss.segment_sum_cuda, flat, plan.kernel)
+        plain_kernels = device_kernels(ss.segment_sum_plain, n, idx, flat)
         size = vals.element_size()
         n_bytes = E * idx.element_size() + E * k * size + n * k * size
         b_ms = n_bytes / PEAK_BYTES_S * 1e3
         live = int((flat != 0).any(dim=1).sum())
         rows[name] = {"n": n, "E": E, "k": k, "dtype": str(vals.dtype).split(".")[-1],
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "live_rows": live, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
                       "bound_ms": b_ms, "bound_by": "bytes", "library_ms": plain_ms,
-                      "deterministic_ms": det_ms, "plan_ms": plan_ms}
+                      "deterministic_ms": det_ms, "plan_ms": plan_ms,
+                      "device_kernels": len(kernels), "kernel_names": sorted(set(kernels)),
+                      "plain_device_kernels": len(plain_kernels)}
+        seen = (f"{len(kernels)} device kernel(s) a call {sorted(set(kernels))}, "
+                f"index_add_ {len(plain_kernels)}" if kernels or plain_kernels else
+                "the profiler shows no device activity")
         print(f"segment_sum {name} [{card}] ({E} edges, {live} with a non-zero row, "
               f"{n} targets, {k} columns, {rows[name]['dtype']}): bitwise equal; kernel "
-              f"{ms:.4f} ms, index_add_ {plain_ms:.4f} ms (float atomics), "
-              f"deterministic {det_ms:.4f} ms; plan {plan_ms:.4f} ms; bound "
-              f"{b_ms:.5f} ms by bytes")
+              f"{ms:.4f} ms ({host_ms:.4f} host-bound), index_add_ {plain_ms:.4f} ms "
+              f"({plain_host_ms:.4f} host-bound; float atomics), deterministic "
+              f"{det_ms:.4f} ms; plan {plan_ms:.4f} ms; bound {b_ms:.5f} ms by bytes; {seen}")
+    slower = [n for n, r in rows.items() if r["E"] and r["ms"] > r["plain_ms"]]
+    if slower:
+        print(f"segment_sum: slower than index_add_ at {slower}")
     return rows
 
 
@@ -2063,6 +2134,13 @@ def main() -> int:
         build.load(name)
     print(f"build {sorted(built)} (one nvcc each, in parallel, then load): "
           f"{time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:] == ["--segment-sum"]:
+        # step 16 alone, on the map of tests/data/loop_per_frame_ba_map.npz
+        rows = check_segment_kernel(TUM3, SLAMConfig(), load_ba_map(SLAMConfig())[0])
+        os.makedirs(os.path.dirname(BA_MAP_OUT), exist_ok=True)
+        with open(os.path.join(os.path.dirname(BA_MAP_OUT), "segment_sum.json"), "w") as f:
+            json.dump({"card": card_line(), "shapes": rows}, f, indent=1)
+        return 0
 
     # ---- worlds ------------------------------------------------------------
     cam = TUM3
@@ -2217,9 +2295,10 @@ def main() -> int:
         # (32768 targets, the invalid edges' run of ~315k on point 0);
         # plain_ms and library_ms are the same call, `index_add_` with
         # float atomics, the plain version on the card
-        **{k: seg_rows["Hpp"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "deterministic_ms",
-                                           "plan_ms")},
+        **{k: seg_rows["Hpp"][k] for k in ("ms", "host_ms", "plain_ms", "plain_host_ms",
+                                           "bound_ms", "bound_by", "library_ms",
+                                           "deterministic_ms", "plan_ms",
+                                           "device_kernels")},
         "shapes": seg_rows,
     }]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in the script")

@@ -85,3 +85,32 @@ def load(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` (if missing or stale) and load it."""
     build_all([name])
     return ctypes.CDLL(_paths(name)[1])
+
+
+def ptxas_report(names: Optional[Iterable[str]] = None) -> dict:
+    """{name: what `nvcc -Xptxas -v` says of csrc/<name>.cu}: each kernel's
+    registers, shared memory and spills. The libraries it builds on the
+    way are thrown away; one nvcc process per source, started together."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in (kernel_names() if names is None else names):
+        tmp = os.path.join(BUILD_DIR, f"ptxas_{name}.{os.getpid()}.so")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _paths(name)[0]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {}
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{logs[name]}")
+    return logs
+
+
+if __name__ == "__main__":
+    # python -m lc_crf_slam_torch.kernels.build [name ...]: the ptxas report
+    import sys
+
+    for name, log in ptxas_report(sys.argv[1:] or None).items():
+        print(f"== {name}\n{log}")

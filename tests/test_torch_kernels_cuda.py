@@ -96,6 +96,17 @@ def test_fused_cell_kernel_refuses_bad_input(cuda):
         fast_kernel.fast_cell_best_cuda(pyr._replace(flat=pyr.flat.cpu()), 20.0, 7.0)
 
 
+def _same_as_plain(out, ref):
+    """Bitwise equal, NaN where the plain version has one (the card's NaN
+    bits may differ from the CPU's)."""
+    from test_torch_segment_sum import bitwise
+
+    out = out.cpu()
+    nan = torch.isnan(ref)
+    return torch.equal(torch.isnan(out), nan) and bitwise(
+        torch.where(nan, 0.0, out).to(ref.dtype), torch.where(nan, 0.0, ref).to(ref.dtype))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["hcc_6x6", "g_p_3", "w_6x3_pairs", "sim3_7x7_f64",
                                   "empty", "one_target"])
@@ -104,7 +115,7 @@ def test_segment_sum_kernel_equals_plain(cuda, case):
     copies of the same inputs: bitwise (NaN where the plain version has
     one), once with a fresh plan and once with a reused one."""
     from lc_crf_slam_torch.ops import segment_sum as ss
-    from test_torch_segment_sum import bitwise, make_case
+    from test_torch_segment_sum import make_case
 
     n, idx, vals = make_case(case)
     ref = ss.segment_sum_plain(n, idx, vals)
@@ -114,11 +125,92 @@ def test_segment_sum_kernel_equals_plain(cuda, case):
     again = ss.segment_sum(vals.to(cuda), plan)
     torch.cuda.synchronize()
     assert ss.launches == before + (2 if idx.numel() else 0)
-    nan = torch.isnan(ref)
-    for o in (out.cpu(), again.cpu()):
-        assert torch.equal(torch.isnan(o), nan)
-        assert bitwise(torch.where(nan, 0.0, o).to(ref.dtype),
-                       torch.where(nan, 0.0, ref).to(ref.dtype))
+    assert _same_as_plain(out, ref) and _same_as_plain(again, ref)
+
+
+def _path_shape(name, rng):
+    """(targets, idx, values) at the shapes of the paths' sums
+    (chip_smoke.py step 16), drawn from a seed: local BA at capacity (32
+    cameras of 1024 slots, 4096 points), the whole map (320 keyframes,
+    32768 points), the pose graphs' 1152 edge ends over 320 nodes, 8192
+    edges on 8192 distinct targets. Unused slots have +-0 rows and target
+    point 0, as the BA problems give them."""
+    C, P = (32, 4096) if name.startswith("local") else (320, 32768)
+    K = 1024
+    used = rng.random(C * K) < (0.4 if name.startswith("local") else 0.05)
+    e_cam = np.repeat(np.arange(C), K)
+    e_pt = np.where(used, rng.integers(0, P, C * K), 0)
+    if name.startswith("pose"):
+        n, idx, k = 320, rng.integers(0, 320, 1152), {"pose_grad": 6, "pose_D": 36}[name]
+        used = rng.random(1152) < 0.9
+    elif name.startswith("distinct"):   # every tile 256 runs of one edge each
+        n = 8192
+        idx, k, used = rng.permutation(n), int(name[-2:]), np.ones(n, bool)
+    else:
+        n, idx, k = {"local_Hcc": (C, e_cam, 36), "local_Hpp": (P, e_pt, 9),
+                     "local_W": (P * C, e_pt * C + e_cam, 18), "map_to_points": (P, e_pt, 3),
+                     "map_to_cameras": (C, e_cam, 6)}[name]
+    vals = rng.normal(0, 1, (len(idx), k)) * used[:, None]
+    dtype = np.float64 if name == "pose_D" else np.float32
+    return n, torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(vals.astype(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["local_Hcc", "local_Hpp", "local_W", "map_to_points",
+                                  "map_to_cameras", "pose_grad", "pose_D", "distinct_18",
+                                  "distinct_36"])
+def test_segment_sum_kernel_at_the_paths_shapes(cuda, name):
+    """The kernel against `index_add_` on CPU copies, bitwise, at the
+    shapes of local BA, the whole-map matvecs and the pose graphs, and on
+    tiles of 256 one-edge runs (a pair block's shape); one launch a call,
+    three calls with one plan over new values each, the last on another
+    stream (stale look-back words of a call before would show)."""
+    from lc_crf_slam_torch.ops import segment_sum as ss
+
+    rng = np.random.default_rng(len(name))
+    n, idx, vals = _path_shape(name, rng)
+    plan = ss.segment_plan(idx.to(cuda), n)
+    side = torch.cuda.Stream()
+    for call in range(3):
+        vals = vals[torch.from_numpy(rng.permutation(len(vals)))] if call else vals
+        before = ss.launches
+        if call == 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                out = ss.segment_sum(vals.to(cuda), plan)
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            out = ss.segment_sum(vals.to(cuda), plan)
+        torch.cuda.synchronize()
+        assert ss.launches == before + 1
+        assert _same_as_plain(out, ss.segment_sum_plain(n, idx, vals)), call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("live", ["every_tile", "sparse"])
+def test_segment_sum_kernel_carries_across_more_tiles_than_sms(cuda, dtype, live):
+    """One run over 600 tiles (the card has 132 SMs), non-zero rows in
+    every tile or in a few, between two other runs; the same plan three
+    times in a row over new values, and the CPU model's many-tile case
+    with -0, NaN and inf rows."""
+    from lc_crf_slam_torch.ops import segment_sum as ss
+    from test_torch_segment_sum import long_run_case
+
+    rng = np.random.default_rng(7)
+    E = 600 * ss.TILE + 100
+    idx = torch.full((E,), 2, dtype=torch.int64)
+    idx[:50], idx[-30:] = 0, 5
+    plan = ss.segment_plan(idx.to(cuda), 6)
+    for call in range(3):
+        vals = torch.from_numpy(rng.normal(0, 1, (E, 7))).to(dtype)
+        if live == "sparse":
+            vals[torch.from_numpy(rng.random(E) < 0.999)] = -0.0
+        out = ss.segment_sum(vals.to(cuda), plan)
+        assert _same_as_plain(out, ss.segment_sum_plain(6, idx, vals)), call
+    n, idx, vals = long_run_case(np.float64 if dtype == torch.float64 else np.float32)
+    out = ss.segment_sum(vals.to(cuda), ss.segment_plan(idx.to(cuda), n))
+    assert _same_as_plain(out, ss.segment_sum_plain(n, idx, vals))
 
 
 @pytest.mark.cuda
@@ -126,16 +218,16 @@ def test_segment_sum_kernel_refuses_bad_input(cuda):
     from lc_crf_slam_torch.ops import segment_sum as ss
 
     idx = torch.zeros(4, dtype=torch.int64, device=cuda)
-    runs = ss.segment_plan(idx, 2).runs
+    kp = ss.segment_plan(idx, 2).kernel
     with pytest.raises(ValueError):
-        ss.segment_sum_cuda(2, torch.zeros((4, 3), dtype=torch.float16, device=cuda), runs)
+        ss.segment_sum_cuda(torch.zeros((4, 3), dtype=torch.float16, device=cuda), kp)
     with pytest.raises(ValueError):
-        ss.segment_sum_cuda(2, torch.zeros((4, 65), device=cuda), runs)
+        ss.segment_sum_cuda(torch.zeros((4, 65), device=cuda), kp)
     with pytest.raises(ValueError):
-        ss.segment_sum_cuda(2, torch.zeros((3, 3), device=cuda), runs)
+        ss.segment_sum_cuda(torch.zeros((3, 3), device=cuda), kp)
     with pytest.raises(ValueError):
-        ss.segment_sum_cuda(2, torch.zeros((3, 4), device=cuda).t(), runs)
-    with pytest.raises(ValueError):     # a plan built on the CPU has no runs
+        ss.segment_sum_cuda(torch.zeros((3, 4), device=cuda).t(), kp)
+    with pytest.raises(ValueError):     # a plan built on the CPU has no kernel plan
         ss.segment_sum(torch.zeros((4, 3), device=cuda), ss.segment_plan(idx.cpu(), 2))
 
 
