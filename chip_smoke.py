@@ -2,6 +2,10 @@
 
     python3 chip_smoke.py
 
+(`--segment-sum` runs step 16 alone; `--phases NAME[,NAME]` runs the
+named self-contained phases alone after the build: loop_per_frame (step
+17), capacity (20), mover (18), chunk_reloc (19).)
+
 1. Prints the card (nvidia-smi name and power limit) and the torch build.
 2. Builds the CUDA kernels from lc_crf_slam_torch/csrc/ (both FAST
    kernels and the segment sum; one nvcc process per source, started
@@ -27,7 +31,7 @@
    fused launch per frame, no frame lost, >= 2 keyframes, one mapping_step
    per keyframe, one crf_step per frame after the first, ATE < 2 cm, and
    1 host sync on a non-keyframe frame (torch's sync debug mode). The
-   phase runs twice (step 20).
+   phase runs twice (step 21).
 6. Sequence phase: the chunked throughput path on the same frames with the
    default SLAMConfig (loop detection on):
    `SLAMSystem.track_sequence(grays, depths, timestamps, chunk=15)`.
@@ -161,22 +165,31 @@
    `python3 chip_smoke.py --segment-sum` runs this step alone, on the map
    of tests/data/loop_per_frame_ba_map.npz.
 17. Per-frame loop phase: the loop phase's 130 frames through
-   `track_rgbd`, default SLAMConfig, mapping and the CRF on. The
-   reference test's gates (tests/test_loopclosure_render_e2e.py:93-97):
-   >= 1 loop, the first one's keyframe inside `kf_log`, ATE < 0.10 m, 0
-   lost frames, >= 20 keyframes. And: exactly one `global_ba` slice on
-   each frame while the budget is pending (the closing frame included)
-   and none on the others, none pending after `get_trajectory()`, every
-   live point's `p_n_obs` equal to the recount, the keyframes' ATE right
-   after `correct_loop` <= 1.1 x just before it; the map handed to the
-   first global-BA slice equal to BA_MAP_FILE (to 1e-5), and the
-   keyframes' ATE after each slice and at the end <= 1.1 x the
-   reference's global BA on that map (it raises their ATE on this world,
-   tests/test_torch_loop_close.py::test_global_ba_on_the_cards_loop_map),
-   1 host sync on every
+   `track_rgbd`, default SLAMConfig, mapping and the CRF on. After them
+   (read from the system then; its pose hash is the trajectory's at that
+   frame) the reference test's gates (tests/test_loopclosure_render_e2e.py:
+   93-97): >= 1 loop, the first one's keyframe inside `kf_log`, ATE <
+   0.10 m, 0 lost frames, >= 20 keyframes; the keyframes' ATE right after
+   `correct_loop` <= 1.1 x just before it; the map handed to the first
+   global-BA slice equal to BA_MAP_FILE (to 1e-5), and the keyframes' ATE
+   after each slice and at frame 129 <= 1.1 x the reference's global BA
+   on that map (it raises their ATE on this world,
+   tests/test_torch_loop_close.py::test_global_ba_on_the_cards_loop_map).
+   Then "two loops per frame": the same world rendered on to frame 179
+   (its pan at the same yaw per frame, 1.72 turns), so that after the
+   first closure the camera pans over the first turn's sector again and
+   detection runs against the corrected map. Over all 180 frames: every
+   closure's keyframe inside `kf_log`, closures at least
+   `min_kfs_since_last` keyframes apart, candidates verified after frame
+   129, ATE < 0.10 m, 0 lost frames, exactly one `global_ba` slice on
+   each frame while a budget is pending (the closing frame included) and
+   none on the others, none pending after `get_trajectory()`, every live
+   point's `p_n_obs` equal to the recount, 1 host sync on every
    non-keyframe frame from the 4th on with no budget pending, one fused
-   launch a frame. Prints the ms of the closing frame and of each
+   launch a frame. Prints the ms of each closing frame, the keyframes' ATE
+   just before and after each `correct_loop`, and the ms of each
    `verify_loop`, `correct_loop`, `global_ba` slice and `search_and_fuse`.
+   (No pan length tried closes a second loop: PERF.md, PR 10.)
 18. Revisit-with-a-mover phase: tests/test_loopclosure_render_e2e.py's
    `_run(billboard=True)` (:32-63): a QVGA sweep over 1600 points, seed
    3, a billboard mover in the start sector, 96 frames through
@@ -195,14 +208,23 @@
    frames + 1 host syncs a chunk plus 3 per relocalisation attempt, the
    final camera within 0.06 m of the revisited frame's ground truth
    (tests/test_tracking_e2e.py:196-204), 1 + chunks fused launches.
-20. Repeatability, with the default algorithms everywhere: the dynamic
+20. Capacity phase: the tracking world's orbit (repeating past its 31
+   frames), 45 frames through `track_rgbd` with the default SLAMConfig
+   but 16 keyframe slots (the least local BA's window takes): the table
+   fills (frame 34), later keyframe decisions drop their insert and map
+   on keyframe 15. Checks exactly one `capacity_full` event, 16
+   keyframes in the map, no lost frame, ATE < 0.02 m, one fused launch a
+   frame and >= 1 segment-sum launch. Prints the peak device memory up to
+   the fill and after it, beside the same frames at the default capacity
+   (320 keyframes).
+21. Repeatability, with the default algorithms everywhere: the dynamic
    phase runs twice and both runs must give bitwise equal poses and the
    same keyframes; the sequence phase and the distributed phase's two
    runs must give bitwise equal poses and the same keyframes (step 15).
    Every phase's trajectory (the float64 Twc of `get_trajectory()`) is
    hashed (sha256, the first 16 hex digits) and printed on one line, so
    that two calls can be compared.
-21. Prints the kernel report as one JSON line (`launches` = the paths'
+22. Prints the kernel report as one JSON line (`launches` = the paths'
    own, the kernel checks' launches apart), the card line again, and
    last `{"ok": true, "device": {...}}`.
 
@@ -292,6 +314,17 @@ MOVER_JUDGED_SHARE = 0.08     # judged mover points / live points
 MOVER_ALL_SHARE = 0.20        # all mover points / live points
 MOVER_MIN_LIVE = 55
 MOVER_RECONNECT = 12          # early-late covisibility without a loop
+# step 17 goes on past the loop world's 130 frames: the same world
+# rendered on (its pan at the same yaw per frame, 1.72 turns by frame
+# 179), so that after the first closure the camera pans over the first
+# turn's sector again, where a second loop could close
+TWO_LOOP_FRAMES = 180
+# step 20: a full keyframe table, per frame: the tracking world's orbit
+# (past its 31 frames the orbit repeats) with 16 keyframe slots, the least
+# local BA's window takes (tests/test_torch_capacity.py holds the port to
+# the reference there on the CPU); the table fills on frame 34
+CAPACITY_KFS = 16
+CAPACITY_FRAMES = 45
 # tests/test_torch_sequence.py::test_blackout_relocalises_at_the_chunk_boundary
 RELOC_FRAMES = list(range(36)) + [-1, -1] + list(range(8))   # -1: black
 RELOC_CHUNK = 4
@@ -331,7 +364,7 @@ def qvga():
                    bf=20.0)
 
 
-# phase -> hash of its final trajectory (step 20)
+# phase -> hash of its final trajectory (step 21)
 POSE_HASHES = {}
 
 
@@ -783,12 +816,15 @@ def timed_stages():
     ({stage: [ms]}, {} that fills with the keyframes just before the first
     `correct_loop`: Tcw, time, alive, their poses after it and after each
     `global_ba` slice of its budget: "after" [(stage, Tcw)], and the map
-    the first slice is handed: "ba_map" (`ba_map_arrays`))."""
+    the first slice is handed: "ba_map" (`ba_map_arrays`), [] that fills
+    with every `correct_loop`'s keyframes just before it and after it:
+    {Tcw, time, alive, Tcw_after})."""
     from lc_crf_slam_torch.models import system
 
     stage_ms = {"verify_loop": [], "correct_loop": [], "global_ba": [],
                 "search_and_fuse": []}
     before = {}
+    closures = []
 
     def timed(name):
         inner = getattr(system, name)
@@ -796,12 +832,14 @@ def timed_stages():
         def stage(*args):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("default")
-            if name == "correct_loop" and not before:
+            if name == "correct_loop":
                 m = args[2]
                 n = int(m.n_kfs)
-                before.update(Tcw=m.kf_Tcw[:n].cpu().numpy(),
-                              time=m.kf_time[:n].cpu().numpy(),
-                              alive=m.kf_alive[:n].cpu().numpy())
+                closures.append(dict(Tcw=m.kf_Tcw[:n].cpu().numpy(),
+                                     time=m.kf_time[:n].cpu().numpy(),
+                                     alive=m.kf_alive[:n].cpu().numpy()))
+                if not before:
+                    before.update(closures[-1])
             if name == "global_ba" and before and "ba_map" not in before:
                 before["ba_map"] = ba_map_arrays(args[2])
             torch.cuda.synchronize()
@@ -809,6 +847,8 @@ def timed_stages():
             out = inner(*args)
             torch.cuda.synchronize()
             stage_ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "correct_loop":
+                closures[-1]["Tcw_after"] = out.kf_Tcw[:n].cpu().numpy()
             if name in ("correct_loop", "global_ba") and before \
                     and len(before.setdefault("after", [])) < 4:
                 n0 = len(before["alive"])
@@ -821,7 +861,7 @@ def timed_stages():
 
     originals = {name: timed(name) for name in stage_ms}
     try:
-        yield stage_ms, before
+        yield stage_ms, before, closures
     finally:
         for name, fn in originals.items():
             setattr(system, name, fn)
@@ -853,17 +893,12 @@ def ba_map_arrays(m) -> dict:
 def load_ba_map(cfg, path: str = BA_MAP_FILE):
     """(an empty map of cfg's capacities on the CPU holding the slots of
     the file written from `ba_map_arrays`, the file's arrays)."""
-    from lc_crf_slam_torch.models.mapstate import empty_map
+    from lc_crf_slam_torch.convert import map_from_slots
 
     z = dict(np.load(path))
-    m = empty_map(cfg, torch.device("cpu"))
-    slots = {}
-    for f in BA_MAP_KF_FIELDS + BA_MAP_P_FIELDS:
-        t = getattr(m, f).clone()
-        t[:len(z[f])] = torch.from_numpy(z[f])
-        slots[f] = t
-    count = lambda f: torch.tensor(len(z[f]), dtype=torch.int32)   # noqa: E731
-    return m._replace(n_kfs=count("kf_Tcw"), n_points=count("p_xyz"), **slots), z
+    slots = {f: z[f] for f in BA_MAP_KF_FIELDS + BA_MAP_P_FIELDS}
+    return map_from_slots(cfg, dict(slots, n_kfs=np.int32(len(z["kf_Tcw"])),
+                                    n_points=np.int32(len(z["p_xyz"])))), z
 
 
 def ba_map_diff(a: dict, b) -> float:
@@ -908,7 +943,7 @@ def loop_phase(cam, world, frames):
     slam = system.SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
                              device="cuda")
     slam.seq_phases = {}
-    with timed_stages() as (stage_ms, before):
+    with timed_stages() as (stage_ms, before, _):
         chunks = count_chunks(slam)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1649,20 +1684,32 @@ def check_segment_kernel(cam, cfg, loop_map) -> dict:
 
 def loop_per_frame_phase(cam, world, frames):
     """Loop closing one frame at a time (see the module docstring, step
-    17); returns the path's kernel launches."""
+    17): the loop world's frames, then the same world on to frame
+    TWO_LOOP_FRAMES - 1 ("two loops per frame"); returns the path's kernel
+    launches."""
     from lc_crf_slam_torch.config import SLAMConfig
     from lc_crf_slam_torch.models.system import SLAMSystem
 
     card = card_line()
-    gt_times, gt = world.groundtruth()
-    slam = SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
-                      device="cuda")
+    t0 = time.perf_counter()
+    frames = frames + [world.frame(k, render=True)
+                       for k in range(len(frames), TWO_LOOP_FRAMES)]
+    render_s = time.perf_counter() - t0
+    gt_times = np.array([f.timestamp for f in frames])
+    gt = np.stack([world.gt_pose_twc(k) for k in range(TWO_LOOP_FRAMES)])
+    cfg = SLAMConfig()
+    slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cuda")
     rows = []   # per frame: ms, host syncs, budget pending before it, slices, closed
-    with timed_stages() as (stage_ms, before):
+    failures = []
+    with timed_stages() as (stage_ms, before, closures):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        for f in frames:
+        for k, f in enumerate(frames):
+            if k == LOOP_FRAMES:
+                # step 17 as it was: the first LOOP_FRAMES frames' result
+                at_loop_end = loop_world_result(slam, before, gt_times, gt, failures)
+                verified_then = slam.n_verify_loops
             pending = slam._gba_pending is not None
             slices, loops = slam._gba_slices_run, len(slam.loop_log)
             with warnings.catch_warnings(record=True) as caught:
@@ -1681,7 +1728,7 @@ def loop_per_frame_phase(cam, world, frames):
         slam.flush_stats()
         ts, poses = slam.get_trajectory()       # finishes a pending global BA
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    POSE_HASHES["loop_per_frame"] = pose_hash(poses)
+    POSE_HASHES["two_loops"] = pose_hash(poses)
     ate = ate_rmse(ts, poses, gt_times, gt)
     m = slam.map
     is_kf = [bool(s.get("need_kf")) for s in slam.stats]
@@ -1690,7 +1737,8 @@ def loop_per_frame_phase(cam, world, frames):
     budget = [k for k, row in enumerate(rows) if row[2] or row[4]]
     quiet = [k for k in range(3, len(rows)) if not (is_kf[k] or rows[k][2] or rows[k][4])]
     quiet_syncs = sorted({rows[k][1] for k in quiet})
-    print(f"loop per frame [{card}]: {len(frames)} frames through track_rgbd, median "
+    print(f"loop per frame [{card}]: {len(frames)} frames through track_rgbd (the last "
+          f"{TWO_LOOP_FRAMES - LOOP_FRAMES} rendered in {render_s:.1f} s), median "
           f"{statistics.median(r[0] for r in rows[3:]):.2f} ms/frame after the first 3, "
           f"mean {np.mean([r[0] for r in rows[1:]]):.2f} over frames 1-{len(rows) - 1}; "
           f"closing frames {closing} at {[round(rows[k][0], 1) for k in closing]} ms; "
@@ -1699,27 +1747,41 @@ def loop_per_frame_phase(cam, world, frames):
           f"{[rows[k][3] for k in budget]}")
     for name, ms in stage_ms.items():
         print(f"loop per frame [{card}]: {name} x{len(ms)}: ms {[round(t, 1) for t in ms]}")
-    print(f"loop per frame [{card}]: loop_log {slam.loop_log}, verified candidates "
-          f"{slam.n_verify_loops}, detect_loop calls {slam.n_detect_loops}, global-BA "
-          f"slices {slam._gba_slices_run}, keyframes {len(slam.kf_log)} ({int(m.n_kfs)} in "
-          f"the map), lost frames {lost}, ATE {ate:.5f} m, kernel launches (fused, map, "
-          f"segment sum) {got}, host syncs on the {len(quiet)} non-keyframe frames "
-          f"without a budget: {quiet_syncs}, on keyframe frames "
-          f"{sorted({rows[k][1] for k in range(3, len(rows)) if is_kf[k]})}, peak memory "
-          f"{peak_mb:.0f} MiB")
-    failures = []
+    for i, (k, c) in enumerate(zip(closing, closures)):
+        ate_kf = lambda Tcw: keyframe_ate(Tcw, c["time"], c["alive"], gt_times, gt)  # noqa: E731
+        print(f"two loops per frame [{card}]: closure {i + 1} on frame {k} "
+              f"({rows[k][0]:.1f} ms), loop_log {slam.loop_log[i]}: the "
+              f"{int(c['alive'].sum())} live keyframes' ATE {ate_kf(c['Tcw']):.5f} m "
+              f"just before correct_loop, {ate_kf(c['Tcw_after']):.5f} m after it")
+    t_end = (TWO_LOOP_FRAMES - 1) / (LOOP_FRAMES - 1)     # the world's time at the end
+    turns = world.pan_turns * (t_end - world.pan_leadin) / (1 - world.pan_leadin)
+    print(f"two loops per frame [{card}]: over {TWO_LOOP_FRAMES} frames ({turns:.4f} "
+          f"turns) loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops} "
+          f"({slam.n_verify_loops - verified_then} after frame {LOOP_FRAMES - 1}), detect_loop "
+          f"calls {slam.n_detect_loops}, global-BA slices {slam._gba_slices_run}, keyframes "
+          f"{len(slam.kf_log)} ({int(m.n_kfs)} in the map), lost frames {lost}, ATE "
+          f"{ate:.5f} m, kernel launches (fused, map, segment sum) {got}, host syncs on the "
+          f"{len(quiet)} non-keyframe frames without a budget: {quiet_syncs}, on keyframe "
+          f"frames {sorted({rows[k][1] for k in range(3, len(rows)) if is_kf[k]})}, peak "
+          f"memory {peak_mb:.0f} MiB; at frame {LOOP_FRAMES - 1}: {at_loop_end}")
     try:
         check_launches("loop per frame phase", got, len(frames))
     except AssertionError as e:
         failures.append(str(e))
-    if not slam.loop_log or not slam.loop_log[0]["kf"] < len(slam.kf_log):
-        failures.append(f"loop_log {slam.loop_log} with {len(slam.kf_log)} keyframes")
+    kf_ids = {int(k) for _, k in slam.kf_log}
+    kfs = [e["kf"] for e in slam.loop_log]
+    if not kfs or any(k not in kf_ids for k in kfs):
+        failures.append(f"loop_log {slam.loop_log}: closing keyframes not all in kf_log")
+    if any(b < a + cfg.loop.min_kfs_since_last for a, b in zip(kfs, kfs[1:])):
+        failures.append(f"closing keyframes {kfs} closer than min_kfs_since_last "
+                        f"{cfg.loop.min_kfs_since_last}")
+    if slam.n_verify_loops <= verified_then:
+        failures.append(f"no loop candidate verified after frame {LOOP_FRAMES - 1}, on the "
+                        f"corrected map")
     if not ate < PF_LOOP_ATE_BAR_M:
-        failures.append(f"ATE {ate} m >= {PF_LOOP_ATE_BAR_M} m")
+        failures.append(f"ATE {ate} m over {TWO_LOOP_FRAMES} frames >= {PF_LOOP_ATE_BAR_M} m")
     if lost:
         failures.append(f"{lost} lost frames")
-    if len(slam.kf_log) < PF_LOOP_MIN_KFS:
-        failures.append(f"{len(slam.kf_log)} keyframes < {PF_LOOP_MIN_KFS}")
     wrong = [k for k, row in enumerate(rows) if row[3] != int(row[2] or row[4])]
     if wrong or slam._gba_pending is not None:
         failures.append(f"global-BA slices {[rows[k][3] for k in wrong]} on frames {wrong}, "
@@ -1730,22 +1792,55 @@ def loop_per_frame_phase(cam, world, frames):
     if stale:
         failures.append(f"{stale} live points whose observation count differs from "
                         f"the recount")
-    if before:
-        n_same, ate_before, ate_after, steps = closure_kf_ates(before, m, gt_times, gt)
-        print(f"loop per frame [{card}]: the {n_same} keyframes alive at the first "
-              f"closure: ATE {ate_before:.5f} m just before it, "
-              f"{[round(a, 5) for a in steps]} m after correct_loop and each global-BA "
-              f"slice, {ate_after:.5f} m at the end; {int(m.p_alive.sum())} live points")
-        # the closure itself (correct_loop) must not make the keyframes
-        # worse; its global BA must hold them as the reference's global BA
-        # does on the same map, after each slice and at the end
-        if not steps[0] <= LOOP_KF_ATE_FACTOR * ate_before:
-            failures.append(f"keyframe ATE {steps[0]} m after correct_loop > "
-                            f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
-        failures += check_global_ba_against_reference(card, before, ate_after, gt_times, gt)
     if failures:
         raise AssertionError("loop per frame phase: " + "; ".join(failures))
     return got
+
+
+def loop_world_result(slam, before, gt_times, gt, failures) -> str:
+    """Step 17's checks on the loop world's LOOP_FRAMES frames, from the
+    system just after them (`get_trajectory()` reads only, no budget being
+    pending then): its pose hash, and its failures appended to `failures`.
+    Returns what it measured, for the phase's line."""
+    card = card_line()
+    if slam._gba_pending is not None:
+        failures.append(f"global-BA budget pending at frame {LOOP_FRAMES - 1}: "
+                        f"{slam._gba_pending}")
+        return "budget pending"
+    slam.flush_stats()
+    ts, poses = slam.get_trajectory()
+    POSE_HASHES["loop_per_frame"] = pose_hash(poses)
+    ate = ate_rmse(ts, poses, gt_times[:LOOP_FRAMES], gt[:LOOP_FRAMES])
+    m = slam.map
+    lost = sum(1 for s in slam.stats if s.get("status", 1) != 1)
+    if not slam.loop_log or not slam.loop_log[0]["kf"] < len(slam.kf_log):
+        failures.append(f"loop_log {slam.loop_log} with {len(slam.kf_log)} keyframes "
+                        f"after {LOOP_FRAMES} frames")
+    if not ate < PF_LOOP_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {PF_LOOP_ATE_BAR_M} m over {LOOP_FRAMES} frames")
+    if lost:
+        failures.append(f"{lost} lost frames in {LOOP_FRAMES}")
+    if len(slam.kf_log) < PF_LOOP_MIN_KFS:
+        failures.append(f"{len(slam.kf_log)} keyframes < {PF_LOOP_MIN_KFS}")
+    if not before:
+        failures.append(f"no closure in {LOOP_FRAMES} frames")
+        return f"ATE {ate:.5f} m, no closure"
+    n_same, ate_before, ate_after, steps = closure_kf_ates(before, m, gt_times, gt)
+    print(f"loop per frame [{card}]: after {LOOP_FRAMES} frames loop_log {slam.loop_log}, "
+          f"verified candidates {slam.n_verify_loops}, global-BA slices "
+          f"{slam._gba_slices_run}, keyframes {len(slam.kf_log)}, lost frames {lost}, ATE "
+          f"{ate:.5f} m; the {n_same} keyframes alive at the first closure: ATE "
+          f"{ate_before:.5f} m just before it, {[round(a, 5) for a in steps]} m after "
+          f"correct_loop and each global-BA slice, {ate_after:.5f} m at frame "
+          f"{LOOP_FRAMES - 1}; {int(m.p_alive.sum())} live points")
+    # the closure itself (correct_loop) must not make the keyframes worse;
+    # its global BA must hold them as the reference's global BA does on
+    # the same map, after each slice and at the loop world's end
+    if not steps[0] <= LOOP_KF_ATE_FACTOR * ate_before:
+        failures.append(f"keyframe ATE {steps[0]} m after correct_loop > "
+                        f"{LOOP_KF_ATE_FACTOR} x {ate_before} m before")
+    failures += check_global_ba_against_reference(card, before, ate_after, gt_times, gt)
+    return f"ATE {ate:.5f} m, keyframe ATE {ate_after:.5f} m"
 
 
 def check_global_ba_against_reference(card, before, ate_end, gt_times, gt) -> list:
@@ -1848,6 +1943,89 @@ def mover_revisit_phase():
         failures.append(f"{int(alive.sum())} live points < {MOVER_MIN_LIVE}")
     if failures:
         raise AssertionError("mover revisit phase: " + "; ".join(failures))
+    return got
+
+
+def capacity_run(cam, frames, cfg):
+    """The frames through `track_rgbd` with cfg: (system, ms per frame,
+    launches, the frame that filled the keyframe table (None without a
+    fill), peak MiB up to that frame and after it, peak MiB of the run)."""
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
+    slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    frame_ms, peaks, filled = [], [0.0, 0.0], None
+    for k, f in enumerate(frames):
+        t0 = time.perf_counter()
+        slam.track_rgbd(f.image, f.depth_image, f.timestamp)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if filled is None and slam._capacity_warned:
+            filled = k
+        after = filled is not None and k > filled
+        peaks[after] = max(peaks[after], torch.cuda.max_memory_allocated() / 2**20)
+        torch.cuda.reset_peak_memory_stats()
+    return slam, frame_ms, path_launches(), filled, peaks, max(peaks)
+
+
+def capacity_phase():
+    """A full keyframe table, per frame (see the module docstring, step
+    20); returns the path's kernel launches."""
+    from lc_crf_slam_torch.config import MapConfig, SLAMConfig
+    from lc_crf_slam_torch.geometry.camera import TUM3
+    from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
+
+    card = card_line()
+    world = SyntheticWorld(cam=TUM3, n_frames=N_FRAMES, n_static=600, n_dynamic=0, seed=0)
+    frames = [world.frame(k, render=True) for k in range(CAPACITY_FRAMES)]
+    gt_times = np.array([f.timestamp for f in frames])
+    gt = np.stack([world.gt_pose_twc(k) for k in range(CAPACITY_FRAMES)])
+    cfg = SLAMConfig(map=MapConfig(max_keyframes=CAPACITY_KFS))
+    slam, frame_ms, got, filled, peaks, _ = capacity_run(TUM3, frames, cfg)
+    slam.flush_stats()
+    ts, poses = slam.get_trajectory()
+    POSE_HASHES["capacity"] = pose_hash(poses)
+    ate = ate_rmse(ts, poses, gt_times, gt)
+    lost = sum(1 for s in slam.stats if s.get("status", 1) != 1)
+    events = [(i, e["event"]) for i, e in enumerate(slam.stats) if "event" in e]
+    full_at = [i for i, e in events if e == "capacity_full"]
+    frame_recs = [s for s in slam.stats if "event" not in s or s["event"] == "init"]
+    dropped = sum(1 for s in frame_recs[filled + 1:] if s.get("need_kf")) \
+        if filled is not None else 0
+    # the same frames at the default capacity (320 keyframes)
+    default, default_ms, _, _, _, default_peak = capacity_run(TUM3, frames, SLAMConfig())
+    print(f"capacity [{card}]: {CAPACITY_FRAMES} frames of the tracking world's orbit "
+          f"through track_rgbd with {CAPACITY_KFS} keyframe slots, median "
+          f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3; events "
+          f"{events}, the table filled on frame {filled}, {dropped} keyframe decisions "
+          f"after it (inserts dropped, mapping on keyframe {CAPACITY_KFS - 1}), "
+          f"keyframes {len(slam.kf_log)} ({int(slam.map.n_kfs)} in the map), lost frames "
+          f"{lost}, ATE {ate:.5f} m, kernel launches (fused, map, segment sum) {got}; peak "
+          f"memory {peaks[0]:.0f} MiB up to the fill, {peaks[1]:.0f} MiB after it; the "
+          f"same frames at the default capacity ({cfg.map.max_points} points, "
+          f"{SLAMConfig().map.max_keyframes} keyframes): peak {default_peak:.0f} MiB, "
+          f"median {statistics.median(default_ms[3:]):.2f} ms/frame, "
+          f"{len(default.kf_log)} keyframes")
+    failures = []
+    try:
+        check_launches("capacity phase", got, CAPACITY_FRAMES)
+    except AssertionError as e:
+        failures.append(str(e))
+    if len(full_at) != 1 or len(events) != 1 + len(full_at):
+        failures.append(f"events {events}: expected one capacity_full")
+    if int(slam.map.n_kfs) != CAPACITY_KFS:
+        failures.append(f"{int(slam.map.n_kfs)} keyframes in the map, expected "
+                        f"{CAPACITY_KFS}")
+    if lost:
+        failures.append(f"{lost} lost frames")
+    if not ate < DYN_ATE_BAR_M:
+        failures.append(f"ATE {ate} m >= {DYN_ATE_BAR_M} m")
+    if got[2] < 1:
+        failures.append("no segment-sum launch")
+    if failures:
+        raise AssertionError("capacity phase: " + "; ".join(failures))
     return got
 
 
@@ -2141,6 +2319,17 @@ def main() -> int:
         with open(os.path.join(os.path.dirname(BA_MAP_OUT), "segment_sum.json"), "w") as f:
             json.dump({"card": card_line(), "shapes": rows}, f, indent=1)
         return 0
+    if sys.argv[1:2] == ["--phases"]:
+        # the self-contained phases named (comma-separated), alone
+        solo = {"loop_per_frame": lambda: loop_per_frame_phase(TUM3, *loop_world(TUM3)),
+                "capacity": capacity_phase,
+                "mover": mover_revisit_phase, "chunk_reloc": chunk_reloc_phase}
+        for name in sys.argv[2].split(","):
+            got = phase(name, solo[name])
+            print(f"{name}: kernel launches (fused, map, segment sum) {got}")
+        print(f"pose hashes: {json.dumps(POSE_HASHES)}")
+        print(f"seconds per phase: {json.dumps(PHASE_S)}")
+        return 0
 
     # ---- worlds ------------------------------------------------------------
     cam = TUM3
@@ -2205,6 +2394,7 @@ def main() -> int:
     del loop_frames
     by_path["mover_revisit"] = phase("mover revisit", mover_revisit_phase)
     by_path["chunk_reloc"] = phase("chunk reloc", chunk_reloc_phase)
+    by_path["capacity"] = phase("capacity", capacity_phase)
     by_path["stereo"] = phase("stereo", stereo_phase, cam)
     by_path["stereo_sequence"] = phase("stereo sequence", stereo_sequence_phase, cam,
                                        dyn_frames, dyn_rights, dyn_world, seq_ms)

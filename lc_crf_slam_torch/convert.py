@@ -47,6 +47,24 @@ def map_to_torch(m, device: str | torch.device = "cpu") -> MapState:
     return out._replace(kf_time=out.kf_time.to(torch.float64))
 
 
+def map_from_slots(cfg, arrays: Dict[str, np.ndarray],
+                   device: str | torch.device = "cpu") -> MapState:
+    """A map of cfg's capacities from {field: array} (the reference's
+    dtypes or the port's), each array filling the leading slots of its
+    field: a field cut to the used keyframe or point slots, or left out,
+    keeps the rest as `empty_map` makes it."""
+    from .models.mapstate import empty_map
+
+    out = empty_map(cfg, torch.device(device))._asdict()
+    for f, a in arrays.items():
+        a = _to_tensor(a, device).to(out[f].dtype)
+        if out[f].dim() == 0:
+            out[f] = a.reshape(())
+        else:
+            out[f][:a.shape[0]] = a
+    return MapState(**out)
+
+
 def track_to_torch(ts, device: str | torch.device = "cpu") -> TrackState:
     return _convert(ts, TrackState, device)
 

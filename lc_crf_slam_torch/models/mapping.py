@@ -61,7 +61,11 @@ def _select_window(cfg: SLAMConfig, m: MapState, kf_idx: torch.Tensor):
     w_top, nbr = stable_topk(_covis_row(m, kf_idx), W - 1)
     nbr_ok = w_top >= cfg.mapping.covisibility_min_weight
     local_ids = torch.cat([kf_idx.reshape(1).to(torch.int64), torch.where(nbr_ok, nbr, -1)])
-    is_local = _mark(F, local_ids, dev)
+    # the reference's dump slot is the live row F - 1, and the empty
+    # neighbours (-1) sit at the tail: the last write wins, so at full
+    # capacity keyframe F - 1 drops out of its own window, as there
+    is_local = scatter_set(torch.zeros(F, dtype=torch.bool, device=dev),
+                           torch.where(local_ids >= 0, local_ids, F - 1), local_ids >= 0)
 
     # points observed by the local window
     obs = torch.where(is_local[:, None] & m.kf_valid, m.kf_obs, -1).reshape(-1)

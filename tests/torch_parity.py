@@ -2,8 +2,12 @@
 the small camera and configuration both packages run, rendered frames
 (and stereo pairs), the reference's own random draws (consensus audit,
 PnP, Horn RANSAC, the two-view initialisation), a hand-built map with a
-drifted revisit, and the run-and-compare of both packages'
+drifted revisit, the reference's whole system state loaded into a port
+system, the port's `track_rgbd` beside the reference run op for op
+(tests/ref_unfused_worker.py), and the run-and-compare of both packages'
 `track_sequence`."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -38,6 +42,28 @@ SEQ_CFG = SLAMConfig(map=MapConfig(max_points=4096))
 PAN_WORLD = dict(n_static=900, n_dynamic=0, seed=5, trajectory="pan", wall=True,
                  pan_leadin=0.1, pan_turns=1.2, pan_translation=0.25,
                  render_depth_noise=0.015)
+# a second pass after the closure: the 130-frame pan world rendered on, at
+# the same yaw per frame, to 1.72 turns (chip_smoke.py's TWO_LOOP_FRAMES)
+TWO_LOOP_FRAMES = 180
+# the tracking phase's orbit world (chip_smoke.py, bench.py:72-75) without
+# its length: the camera stays on one 600-point scene, and past the
+# world's n_frames the orbit repeats; with 16 keyframe slots (the least
+# the local-BA window takes) the table fills within ~40 frames at 640x480
+ORBIT_WORLD = dict(n_static=600, n_dynamic=0, seed=0)
+ORBIT_CFG = SLAMConfig(map=MapConfig(max_points=4096, max_keyframes=16))
+# the runs tests/ref_unfused_worker.py makes, by its --world name: (world,
+# config, camera: "qvga" or "tum3", 640x480)
+UNFUSED_RUNS = {"pan": (PAN_WORLD, SLAMConfig(), "qvga"),
+                "orbit16": (ORBIT_WORLD, ORBIT_CFG, "tum3")}
+
+
+def cameras(name):
+    """(reference camera, port camera) by name: "qvga" or "tum3"."""
+    if name == "qvga":
+        return CAM_REF, CAM
+    from lc_crf_slam_tpu.geometry.camera import TUM3 as REF_TUM3
+    from lc_crf_slam_torch.geometry.camera import TUM3
+    return REF_TUM3, TUM3
 
 
 def render(world, k):
@@ -74,11 +100,12 @@ def reference_consensus_sampler(frame_idx: int):
     return sampler
 
 
-def use_reference_draws(port) -> None:
+def use_reference_draws(port, key=None) -> None:
     """Make a port SLAMSystem draw what the reference SLAMSystem draws:
     the audit's per-frame keys, and the relocalisation and loop
-    verification keys split off PRNGKey(7) one attempt at a time."""
-    state = {"key": jax.random.PRNGKey(7)}
+    verification keys split off PRNGKey(7) (or the reference system's
+    `_reloc_key` as `key`, uint32 (2,)) one attempt at a time."""
+    state = {"key": jax.random.PRNGKey(7) if key is None else jnp.asarray(key, jnp.uint32)}
 
     def next_key():
         state["key"], sub = jax.random.split(state["key"])
@@ -221,6 +248,68 @@ def with_loop_twins(m, kf_loop, T_true, T_drift):
                             jnp.ones(n, bool), kf_loop)
     return m._replace(kf_obs=m.kf_obs.at[kf_loop, :n].set(dup_ids[:n]),
                       p_n_obs=m.p_n_obs.at[dup_ids].add(1)), n
+
+
+# ---- the reference's whole system state, into a port system ------------
+
+def load_reference_state(port, z, gray_prev) -> None:
+    """Put the reference system's state after a frame (an npz of
+    tests/ref_unfused_worker.py's `save_state`, read with `np.load`) into
+    the port system `port`, with `gray_prev` (that frame's image) as the
+    previous frame's flow input: the map and tracker, the loop glue's host
+    state, and the reference's draws from its next key on."""
+    from lc_crf_slam_torch import convert
+
+    dev = port.device
+    port.map = convert.map_from_slots(
+        port.cfg, {f[4:]: z[f] for f in z.files if f.startswith("map/")}, dev)
+    port.ts = convert.track_to_torch(
+        SimpleNamespace(**{f[3:]: z[f] for f in z.files if f.startswith("ts/")}), dev)
+    port.initialized = True
+    port._n_frames = int(port.ts.frame_idx)
+    port._last_gray = torch.as_tensor(gray_prev, dtype=torch.float32, device=dev)
+    port._last_Tcw = port.ts.Tcw
+    port._consistent_groups = [(mask, int(st)) for mask, st in
+                               zip(z["consistent_masks"], z["consistent_streaks"])]
+    port._last_loop_kf = int(z["last_loop_kf"])
+    port._gba_pending = None if int(z["gba_left"]) < 0 else {
+        "left": int(z["gba_left"]), "kf": int(z["gba_kf"])}
+    port._gba_slices_run = int(z["gba_slices_run"])
+    use_reference_draws(port, z["reloc_key"])
+
+
+# ---- the port's track_rgbd against the reference run op for op ----------
+
+def run_against_unfused(tmp_path, world_name, n, run=None):
+    """The port's `track_rgbd` (the reference's draws) over the first `run`
+    (default n) frames of the worker's world `world_name` (n frames long)
+    while tests/ref_unfused_worker.py runs the reference op for op over
+    the same frames in its own process: (port system, its stats flushed;
+    the worker's npz; the world)."""
+    import os
+    import subprocess
+    import sys
+
+    from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
+
+    out = tmp_path / f"reference_{world_name}.npz"
+    env = dict(os.environ, XLA_FLAGS="--xla_backend_optimization_level=0")
+    worker = subprocess.Popen(
+        [sys.executable, os.path.join(os.path.dirname(__file__), "ref_unfused_worker.py"),
+         str(out), str(n), "--world", world_name, "--run", str(run or n)], env=env)
+    try:
+        world_kw, cfg, cam = UNFUSED_RUNS[world_name]
+        cam_ref, cam = cameras(cam)
+        world = RefWorld(cam=cam_ref, n_frames=n, **world_kw)
+        port = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
+        use_reference_draws(port)
+        for k in range(run or n):
+            port.track_rgbd(*render(world, k), k / 30.0)
+        port.flush_stats()
+        assert worker.wait(timeout=3600) == 0
+    finally:
+        worker.kill()
+    return port, np.load(out), world
 
 
 # ---- track_sequence in both packages ----------------------------------
