@@ -12,9 +12,12 @@ named self-contained phases alone after the build: loop_per_frame (step
    together).
 3. Holds each FAST kernel against its plain PyTorch version and times
    both with CUDA events (the segment sum: step 16):
-   - `fast_nms_dual` (both NMS'd score maps of one level): bitwise on the
-     8 pyramid levels of a rendered TUM3 frame and on two random images
-     (200x300, not a multiple of the tile; 256x256);
+   - `fast_nms_dual` (both NMS'd score maps of every level of every frame
+     of a batch in one launch): bitwise through its one-level entry on
+     the 8 pyramid levels of a rendered TUM3 frame and on two random
+     images (200x300, not a multiple of the tile; 256x256), and on the
+     pyramids of B=1 (that frame), B=2 and B=15 frames, each in one
+     launch; level 0 alone and each batch timed;
    - `fast_cell_best` (FAST + NMS + best corner per 16-px cell, all levels
      of all frames of a batch in one launch): `best` bitwise, `y` and `x`
      exact, at B=1 (the 8 levels of a rendered frame), B=2 (a stereo pair),
@@ -175,10 +178,11 @@ named self-contained phases alone after the build: loop_per_frame (step
    after each slice and at frame 129 <= 1.1 x the reference's global BA
    on that map (it raises their ATE on this world,
    tests/test_torch_loop_close.py::test_global_ba_on_the_cards_loop_map).
-   Then "two loops per frame": the same world rendered on to frame 179
-   (its pan at the same yaw per frame, 1.72 turns), so that after the
+   Then "two loops per frame": the same world rendered on to frame 158
+   (its pan at the same yaw per frame, 1.5 turns), so that after the
    first closure the camera pans over the first turn's sector again and
-   detection runs against the corrected map. Over all 180 frames: every
+   detection runs against the corrected map (its keyframes on frames 153
+   and 158 verify candidates there). Over all 159 frames: every
    closure's keyframe inside `kf_log`, closures at least
    `min_kfs_since_last` keyframes apart, candidates verified after frame
    129, ATE < 0.10 m, 0 lost frames, exactly one `global_ba` slice on
@@ -187,8 +191,9 @@ named self-contained phases alone after the build: loop_per_frame (step
    point's `p_n_obs` equal to the recount, 1 host sync on every
    non-keyframe frame from the 4th on with no budget pending, one fused
    launch a frame. Prints the ms of each closing frame, the keyframes' ATE
-   just before and after each `correct_loop`, and the ms of each
-   `verify_loop`, `correct_loop`, `global_ba` slice and `search_and_fuse`.
+   just before and after each `correct_loop`, the ms of each
+   `verify_loop`, `correct_loop`, `global_ba` slice and `search_and_fuse`,
+   and the frames after frame 129 that verify candidates.
    (No pan length tried closes a second loop: PERF.md, PR 10.)
 18. Revisit-with-a-mover phase: tests/test_loopclosure_render_e2e.py's
    `_run(billboard=True)` (:32-63): a QVGA sweep over 1600 points, seed
@@ -210,13 +215,25 @@ named self-contained phases alone after the build: loop_per_frame (step
    (tests/test_tracking_e2e.py:196-204), 1 + chunks fused launches.
 20. Capacity phase: the tracking world's orbit (repeating past its 31
    frames), 45 frames through `track_rgbd` with the default SLAMConfig
-   but 16 keyframe slots (the least local BA's window takes): the table
-   fills (frame 34), later keyframe decisions drop their insert and map
-   on keyframe 15. Checks exactly one `capacity_full` event, 16
-   keyframes in the map, no lost frame, ATE < 0.02 m, one fused launch a
-   frame and >= 1 segment-sum launch. Prints the peak device memory up to
-   the fill and after it, beside the same frames at the default capacity
-   (320 keyframes).
+   but 16 keyframe slots (the least local BA's window takes) and 4096
+   point slots (the least tracking's top-k takes): the configuration of
+   tests/test_torch_capacity.py's orbit run (`torch_parity.ORBIT_CFG`).
+   The keyframe table fills (frame 34), later keyframe decisions drop
+   their insert and map on keyframe 15; the point table's high-water
+   mark reaches its end (frame 38 on the CPU) and `add_points` hands
+   culled slots out again, condemning the keyframe references to them to
+   -2 and sending the ones still vetoing movers to the tombstone ring
+   (every `add_points` counted on the card). Checks exactly one
+   `capacity_full` event, 16 keyframes in the map, no lost frame, ATE <
+   0.02 m, one fused launch a frame, >= 1 segment-sum launch, >= 1 slot
+   reused and >= 1 reference condemned, no reference to a reused slot
+   left behind by any `add_points`, and every live point's observation
+   count equal to the recount. Prints the frame that reached the mark,
+   the slots reused, the references condemned, `tomb_n`, live points
+   and the references to culled slots not yet reused (kept on purpose,
+   as the reference keeps them), and the peak device memory up to the
+   fill and after it, beside the same frames up to the fill at the
+   default capacity (320 keyframes, 32768 points).
 21. Repeatability, with the default algorithms everywhere: the dynamic
    phase runs twice and both runs must give bitwise equal poses and the
    same keyframes; the sequence phase and the distributed phase's two
@@ -315,15 +332,16 @@ MOVER_ALL_SHARE = 0.20        # all mover points / live points
 MOVER_MIN_LIVE = 55
 MOVER_RECONNECT = 12          # early-late covisibility without a loop
 # step 17 goes on past the loop world's 130 frames: the same world
-# rendered on (its pan at the same yaw per frame, 1.72 turns by frame
-# 179), so that after the first closure the camera pans over the first
+# rendered on (its pan at the same yaw per frame, 1.5 turns by frame
+# 158), so that after the first closure the camera pans over the first
 # turn's sector again, where a second loop could close
-TWO_LOOP_FRAMES = 180
+TWO_LOOP_FRAMES = 159
 # step 20: a full keyframe table, per frame: the tracking world's orbit
 # (past its 31 frames the orbit repeats) with 16 keyframe slots, the least
 # local BA's window takes (tests/test_torch_capacity.py holds the port to
 # the reference there on the CPU); the table fills on frame 34
 CAPACITY_KFS = 16
+CAPACITY_POINTS = 4096    # the least tracking's top-k of LOCAL_POINTS takes
 CAPACITY_FRAMES = 45
 # tests/test_torch_sequence.py::test_blackout_relocalises_at_the_chunk_boundary
 RELOC_FRAMES = list(range(36)) + [-1, -1] + list(range(8))   # -1: black
@@ -391,16 +409,34 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def synced_ms(fn, *args):
+    """(fn(*args), its ms with a synchronize on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def cuda_ms(fn, *args, batches: int = 20, reps: int = 10):
     """(device ms, host-bound ms) of one call, each the median of
     `batches` CUDA-event timings of `reps` back-to-back calls.
 
     Device time: a spin kernel holds the stream while the batch is
-    enqueued, so the events bracket only the GPU's own work. Host-bound
-    time: no spin, so the gaps while Python enqueues each call count too
-    (what a caller that launches one level at a time pays)."""
+    enqueued, so the events bracket only the GPU's own work; it spins
+    three times as long as one warm batch took to enqueue, at least ~1 ms
+    and at most ~25 ms. Host-bound time: no spin, so the gaps while Python
+    enqueues each call count too (what a caller that launches one level at
+    a time pays)."""
     for _ in range(min(3, batches)):
         fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    enqueue_s = time.perf_counter() - t0
+    # GPU clock cycles (~2 GHz)
+    spin_cycles = int(min(50e6, max(2e6, 3 * enqueue_s * 2e9)))
     out = []
     for spin in (True, False):
         times = []
@@ -409,7 +445,7 @@ def cuda_ms(fn, *args, batches: int = 20, reps: int = 10):
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             if spin:
-                torch.cuda._sleep(50_000_000)   # ~25 ms of GPU clock cycles
+                torch.cuda._sleep(spin_cycles)
             start.record()
             for _ in range(reps):
                 fn(*args)
@@ -430,28 +466,44 @@ def bound(n_bytes: float, n_pixels: int, n_scored: int):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_fast_kernel(images):
-    """Map kernel vs plain version on each image: bitwise equality, times."""
+def check_fast_kernel(images, grays, cfg):
+    """Map kernel vs plain version: each of `images` alone through the
+    one-level entry, and the pyramids of the first 1, 2 and 15 of `grays`
+    (B, H, W) each in one launch, bitwise; times of level 0 alone and of
+    each batch. Returns the report rows by case."""
     from lc_crf_slam_torch.ops.fast import fast_score_dual
-    from lc_crf_slam_torch.ops.fast_kernel import fast_score_dual_cuda
+    from lc_crf_slam_torch.ops.fast_kernel import (fast_nms_dual_cuda,
+                                                   fast_nms_dual_plain,
+                                                   fast_score_dual_cuda)
+    from lc_crf_slam_torch.ops.pyramid import build_pyramid_batch
 
-    rows = []
-    for name, img in images:
-        hi, lo = fast_score_dual_cuda(img, 20.0, 7.0)
-        ph, pl = fast_score_dual(img, 20.0, 7.0)
+    th = (float(cfg.orb.ini_th_fast), float(cfg.orb.min_th_fast))
+    cases = [(name, img, fast_score_dual_cuda, fast_score_dual) for name, img in images]
+    for B in (1, 2, 15):
+        pyr = build_pyramid_batch(grays[:B], cfg.orb.n_levels, cfg.orb.scale_factor)
+        cases.append((f"B={B}", pyr, fast_nms_dual_cuda, fast_nms_dual_plain))
+    rows = {}
+    for name, x, kernel, plain in cases:
+        hi, lo = kernel(x, *th)
+        ph, pl = plain(x, *th)
         torch.cuda.synchronize()
-        n_scored = int((ph > 0).sum()) + int((pl > 0).sum())
         err = max(float((hi - ph).abs().max()), float((lo - pl).abs().max()))
         if not (torch.equal(hi, ph) and torch.equal(lo, pl)):
-            raise AssertionError(f"FAST kernel != plain version on {name}: "
+            raise AssertionError(f"FAST map kernel != plain version on {name}: "
                                  f"max abs err {err}")
-        ms, host_ms = cuda_ms(fast_score_dual_cuda, img, 20.0, 7.0)
-        plain_ms, plain_host_ms = cuda_ms(fast_score_dual, img, 20.0, 7.0,
-                                          batches=5, reps=2)
-        rows.append((name, tuple(img.shape), err, ms, plain_ms, n_scored))
-        print(f"fast_nms {name:>13} {tuple(img.shape)}: bitwise equal; device "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; host-bound kernel "
-              f"{host_ms:.4f} ms, plain {plain_host_ms:.4f} ms")
+        if not (name == "level0" or name.startswith("B=")):
+            print(f"fast_nms {name:>13} {tuple(x.shape)}: bitwise equal")
+            continue
+        n_pixels = ph.numel()
+        n_scored = int((ph > 0).sum()) + int((pl > 0).sum())
+        ms, host_ms = cuda_ms(kernel, x, *th)
+        plain_ms = synced_ms(plain, x, *th)[1]
+        b_ms, b_by = bound(12 * n_pixels, n_pixels, n_scored)
+        rows[name] = {"max_abs_err": err, "ms": ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"fast_nms {name:>13} ({n_pixels} pixels, {n_scored} non-zero scores, "
+              f"one launch): bitwise equal; device kernel {ms:.4f} ms, host-bound "
+              f"{host_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms by {b_by}")
     return rows
 
 
@@ -480,7 +532,7 @@ def check_cell_kernel(name, grays, cfg):
         n_corners += int((o[0] > 0).sum())
     B = grays.shape[0]
     ms, host_ms = cuda_ms(fast_cell_best_cuda, *args)
-    plain_ms, _ = cuda_ms(fast_cell_best_plain, *args, batches=1, reps=1)
+    plain_ms = synced_ms(fast_cell_best_plain, *args)[1]
     n_pixels = pyr.flat.numel()
     b_ms, b_by = bound(4 * n_pixels + 12 * n_cells, n_pixels, n_corners)
     print(f"fast_cells {name} (B={B}, {n_pixels} pixels, {n_cells} cells, "
@@ -1712,6 +1764,7 @@ def loop_per_frame_phase(cam, world, frames):
                 verified_then = slam.n_verify_loops
             pending = slam._gba_pending is not None
             slices, loops = slam._gba_slices_run, len(slam.loop_log)
+            verified = slam.n_verify_loops
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
@@ -1723,7 +1776,7 @@ def loop_per_frame_phase(cam, world, frames):
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
             rows.append((ms, count_syncs(caught), pending, slam._gba_slices_run - slices,
-                         len(slam.loop_log) > loops))
+                         len(slam.loop_log) > loops, slam.n_verify_loops - verified))
         got = path_launches()
         slam.flush_stats()
         ts, poses = slam.get_trajectory()       # finishes a pending global BA
@@ -1757,7 +1810,8 @@ def loop_per_frame_phase(cam, world, frames):
     turns = world.pan_turns * (t_end - world.pan_leadin) / (1 - world.pan_leadin)
     print(f"two loops per frame [{card}]: over {TWO_LOOP_FRAMES} frames ({turns:.4f} "
           f"turns) loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops} "
-          f"({slam.n_verify_loops - verified_then} after frame {LOOP_FRAMES - 1}), detect_loop "
+          f"({slam.n_verify_loops - verified_then} after frame {LOOP_FRAMES - 1}, by frame "
+          f"{ {k: r[5] for k, r in enumerate(rows) if k >= LOOP_FRAMES and r[5]} }), detect_loop "
           f"calls {slam.n_detect_loops}, global-BA slices {slam._gba_slices_run}, keyframes "
           f"{len(slam.kf_log)} ({int(m.n_kfs)} in the map), lost frames {lost}, ATE "
           f"{ate:.5f} m, kernel launches (fused, map, segment sum) {got}, host syncs on the "
@@ -1946,17 +2000,65 @@ def mover_revisit_phase():
     return got
 
 
+@contextlib.contextmanager
+def counted_recycling():
+    """Within the block, every `add_points` of the pipeline (tracking's,
+    the system's, mapping's) adds to device counters, read at the end (no
+    host read per call): {"reused": slots below the high-water mark handed
+    out again, "condemned": keyframe references those reuses turned to -2,
+    "left": references to a reused slot still in the table after the call
+    (a keyframe entry that would alias the new point)}."""
+    from lc_crf_slam_torch.models import mapping, mapstate, system, tracking
+
+    counts = {k: torch.zeros((), dtype=torch.int64, device="cuda")
+              for k in ("reused", "condemned", "left")}
+    original = mapstate.add_points
+
+    def counted(m, *args, **kwargs):
+        out, ids = original(m, *args, **kwargs)
+        P = m.capacity_points
+        reused = (ids >= 0) & (ids < m.n_points)
+        hit = torch.zeros(P + 1, dtype=torch.bool, device=ids.device)
+        hit[torch.where(reused, ids, P).long()] = True
+        counts["reused"] += torch.sum(reused)
+        counts["condemned"] += torch.sum((m.kf_obs >= 0) & (out.kf_obs == -2))
+        counts["left"] += torch.sum(
+            (out.kf_obs >= 0) & hit[:P][torch.clamp(out.kf_obs, min=0).long()])
+        return out, ids
+
+    modules = (mapping, system, tracking)
+    for mod in modules:
+        mod.add_points = counted
+    try:
+        yield counts
+    finally:
+        for mod in modules:
+            mod.add_points = original
+
+
+def dead_slot_refs(m) -> int:
+    """Live keyframes' valid observations naming a point slot that is not
+    alive: references to culled points, which the pipeline keeps (for
+    covisibility and to keep the feature from being triangulated again)
+    until `add_points` hands the slot out again, as the reference does."""
+    alive = m.kf_alive[:, None] & m.kf_valid & (m.kf_obs >= 0)
+    dead = ~m.p_alive[torch.clamp(m.kf_obs, min=0).long()]
+    return int((alive & dead).sum())
+
+
 def capacity_run(cam, frames, cfg):
     """The frames through `track_rgbd` with cfg: (system, ms per frame,
     launches, the frame that filled the keyframe table (None without a
-    fill), peak MiB up to that frame and after it, peak MiB of the run)."""
+    fill), peak MiB up to that frame and after it, peak MiB of the run,
+    the first frame whose high-water mark reached `cfg.map.max_points`
+    (None if none did))."""
     from lc_crf_slam_torch.models.system import SLAMSystem
 
     slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    frame_ms, peaks, filled = [], [0.0, 0.0], None
+    frame_ms, peaks, filled, marked = [], [0.0, 0.0], None, None
     for k, f in enumerate(frames):
         t0 = time.perf_counter()
         slam.track_rgbd(f.image, f.depth_image, f.timestamp)
@@ -1967,12 +2069,14 @@ def capacity_run(cam, frames, cfg):
         after = filled is not None and k > filled
         peaks[after] = max(peaks[after], torch.cuda.max_memory_allocated() / 2**20)
         torch.cuda.reset_peak_memory_stats()
-    return slam, frame_ms, path_launches(), filled, peaks, max(peaks)
+        if marked is None and int(slam.map.n_points) >= cfg.map.max_points:
+            marked = k
+    return slam, frame_ms, path_launches(), filled, peaks, max(peaks), marked
 
 
 def capacity_phase():
-    """A full keyframe table, per frame (see the module docstring, step
-    20); returns the path's kernel launches."""
+    """Full keyframe and point tables, per frame (see the module
+    docstring, step 20); returns the path's kernel launches."""
     from lc_crf_slam_torch.config import MapConfig, SLAMConfig
     from lc_crf_slam_torch.geometry.camera import TUM3
     from lc_crf_slam_torch.utils.synthetic import SyntheticWorld
@@ -1982,8 +2086,11 @@ def capacity_phase():
     frames = [world.frame(k, render=True) for k in range(CAPACITY_FRAMES)]
     gt_times = np.array([f.timestamp for f in frames])
     gt = np.stack([world.gt_pose_twc(k) for k in range(CAPACITY_FRAMES)])
-    cfg = SLAMConfig(map=MapConfig(max_keyframes=CAPACITY_KFS))
-    slam, frame_ms, got, filled, peaks, _ = capacity_run(TUM3, frames, cfg)
+    cfg = SLAMConfig(map=MapConfig(max_points=CAPACITY_POINTS, max_keyframes=CAPACITY_KFS))
+    with counted_recycling() as recycling:
+        slam, frame_ms, got, filled, peaks, _, marked = capacity_run(TUM3, frames, cfg)
+    reused, condemned, left = (int(recycling[k]) for k in ("reused", "condemned",
+                                                           "left"))
     slam.flush_stats()
     ts, poses = slam.get_trajectory()
     POSE_HASHES["capacity"] = pose_hash(poses)
@@ -1994,20 +2101,31 @@ def capacity_phase():
     frame_recs = [s for s in slam.stats if "event" not in s or s["event"] == "init"]
     dropped = sum(1 for s in frame_recs[filled + 1:] if s.get("need_kf")) \
         if filled is not None else 0
-    # the same frames at the default capacity (320 keyframes)
-    default, default_ms, _, _, _, default_peak = capacity_run(TUM3, frames, SLAMConfig())
+    m = slam.map
+    stale, dead_refs = stale_obs_counts(m), dead_slot_refs(m)
+    # the same frames at the default capacity (320 keyframes), up to the
+    # fill: its peak memory beside the full table's
+    upto = CAPACITY_FRAMES if filled is None else filled + 1
+    default, default_ms, _, _, _, default_peak, _ = capacity_run(TUM3, frames[:upto],
+                                                                 SLAMConfig())
     print(f"capacity [{card}]: {CAPACITY_FRAMES} frames of the tracking world's orbit "
-          f"through track_rgbd with {CAPACITY_KFS} keyframe slots, median "
-          f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3; events "
-          f"{events}, the table filled on frame {filled}, {dropped} keyframe decisions "
-          f"after it (inserts dropped, mapping on keyframe {CAPACITY_KFS - 1}), "
-          f"keyframes {len(slam.kf_log)} ({int(slam.map.n_kfs)} in the map), lost frames "
-          f"{lost}, ATE {ate:.5f} m, kernel launches (fused, map, segment sum) {got}; peak "
-          f"memory {peaks[0]:.0f} MiB up to the fill, {peaks[1]:.0f} MiB after it; the "
-          f"same frames at the default capacity ({cfg.map.max_points} points, "
-          f"{SLAMConfig().map.max_keyframes} keyframes): peak {default_peak:.0f} MiB, "
-          f"median {statistics.median(default_ms[3:]):.2f} ms/frame, "
-          f"{len(default.kf_log)} keyframes")
+          f"through track_rgbd with {CAPACITY_KFS} keyframe slots and {CAPACITY_POINTS} "
+          f"point slots, median {statistics.median(frame_ms[3:]):.2f} ms/frame after the "
+          f"first 3; events {events}, the keyframe table filled on frame {filled}, "
+          f"{dropped} keyframe decisions after it (inserts dropped, mapping on keyframe "
+          f"{CAPACITY_KFS - 1}), keyframes {len(slam.kf_log)} ({int(m.n_kfs)} in the map), "
+          f"lost frames {lost}, ATE {ate:.5f} m, kernel launches (fused, map, segment sum) "
+          f"{got}; point table: the high-water mark reached {CAPACITY_POINTS} on frame "
+          f"{marked}, {reused} slots reused, {condemned} keyframe references condemned, "
+          f"{left} references to a reused slot left behind, tomb_n {int(m.tomb_n)}, "
+          f"{int(m.p_alive.sum())} live points, {stale} live points whose observation "
+          f"count differs from the recount, {dead_refs} live references to a culled slot "
+          f"not yet reused; peak memory {peaks[0]:.0f} MiB up to the fill, "
+          f"{peaks[1]:.0f} MiB after it; frames 0-{upto - 1} at the default capacity "
+          f"({SLAMConfig().map.max_points} points, {SLAMConfig().map.max_keyframes} "
+          f"keyframes): peak {default_peak:.0f} MiB, median "
+          f"{statistics.median(default_ms[3:]):.2f} ms/frame, {len(default.kf_log)} "
+          f"keyframes")
     failures = []
     try:
         check_launches("capacity phase", got, CAPACITY_FRAMES)
@@ -2015,8 +2133,8 @@ def capacity_phase():
         failures.append(str(e))
     if len(full_at) != 1 or len(events) != 1 + len(full_at):
         failures.append(f"events {events}: expected one capacity_full")
-    if int(slam.map.n_kfs) != CAPACITY_KFS:
-        failures.append(f"{int(slam.map.n_kfs)} keyframes in the map, expected "
+    if int(m.n_kfs) != CAPACITY_KFS:
+        failures.append(f"{int(m.n_kfs)} keyframes in the map, expected "
                         f"{CAPACITY_KFS}")
     if lost:
         failures.append(f"{lost} lost frames")
@@ -2024,6 +2142,13 @@ def capacity_phase():
         failures.append(f"ATE {ate} m >= {DYN_ATE_BAR_M} m")
     if got[2] < 1:
         failures.append("no segment-sum launch")
+    if marked is None or reused < 1 or condemned < 1:
+        failures.append(f"the point table did not recycle: high-water mark at "
+                        f"{CAPACITY_POINTS} on frame {marked}, {reused} slots reused, "
+                        f"{condemned} references condemned")
+    if stale or left:
+        failures.append(f"{stale} live points whose observation count differs from the "
+                        f"recount, {left} references to a reused slot left behind")
     if failures:
         raise AssertionError("capacity phase: " + "; ".join(failures))
     return got
@@ -2120,15 +2245,6 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
-
-
-def synced_ms(fn, *args):
-    """(fn(*args), its ms with a synchronize on both sides)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(*args)
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
 
 
 def distributed_phase(cam, frames, world, seq_ms, seq_poses, seq_kf_log, loop_map,
@@ -2357,10 +2473,13 @@ def main() -> int:
     for shape in ((200, 300), (256, 256)):
         images.append((f"random{shape[0]}x{shape[1]}", torch.as_tensor(
             (rng.random(shape) * 255).astype(np.float32), device=dev)))
-    rows = check_fast_kernel(images)
     chunk_grays = torch.as_tensor(
         np.stack([f.image for f in dyn_frames[1:1 + SEQ_CHUNK]]).astype(np.float32),
         device=dev)
+    # the map kernel's batches: the tracking frame whose levels are checked
+    # above, then the chunk's first 14 frames
+    nms_rows = check_fast_kernel(images, torch.cat([levels[0][None],
+                                                    chunk_grays[:SEQ_CHUNK - 1]]), cfg)
     cells_b1 = check_cell_kernel("one frame", chunk_grays[:1], cfg)
     cells_b8 = check_cell_kernel("a chunk of 8", chunk_grays[:TUM_CHUNK], cfg)
     cells_b15 = check_cell_kernel("one chunk", chunk_grays, cfg)
@@ -2423,10 +2542,6 @@ def main() -> int:
                              f"local BA or a pose graph {sum_off}: {by_path}")
 
     # ---- report ------------------------------------------------------------
-    level_rows = [r for r in rows if r[0].startswith("level")]
-    n_pixels = sum(r[1][0] * r[1][1] for r in level_rows)
-    maps_bound_ms, maps_bound_by = bound(12 * n_pixels, n_pixels,
-                                         sum(r[5] for r in level_rows))
     report = {"kernels": [{
         "name": "fast_cell_best",
         "route": "cuda",
@@ -2463,14 +2578,17 @@ def main() -> int:
         "replaces": "lc_crf_slam_tpu/ops/pallas_fast.py:143",
         # off every path (each phase asserts 0): only the check above
         # launches it
-        "launches": 0,
-        "max_abs_err": max(r[2] for r in rows),
-        # one frame's maps: the sum over the 8 pyramid level shapes
-        "ms": sum(r[3] for r in level_rows),
-        "plain_ms": sum(r[4] for r in level_rows),
-        "bound_ms": maps_bound_ms,
-        "bound_by": maps_bound_by,
+        "launches": sum(got[1] for got in by_path.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in nms_rows.values()),
+        # one frame's 8 levels in one launch
+        **{k: nms_rows["B=1"][k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                            "bound_by")},
         "library_ms": None,     # no single PyTorch call computes it
+        # level 0 alone (one 640x480 level, a one-level table), a stereo
+        # pair and a chunk of 15 in one launch
+        "level0": nms_rows["level0"],
+        "pair": nms_rows["B=2"],
+        "chunk_of_15": nms_rows["B=15"],
     }, {
         "name": "segment_sum",
         "route": "cuda",

@@ -41,6 +41,8 @@
 // memory: no global atomics, no second launch. The block's register count
 // is held to 3 resident blocks per SM (1, 2 and 4 timed within 5% of it on
 // that card). Loads are scalar: level rows are not 16-byte aligned in general (W = 533, 444...).
+// Everything up to the NMS'd pair of each pixel is fast_common.cuh's
+// (find_level, load_tile, score_ring, nms_pair), which fast_nms.cu shares.
 
 #include "fast_common.cuh"
 
@@ -50,17 +52,7 @@ using namespace lc_fast;
 
 constexpr int kCell = 16;
 constexpr int kCellsPerTile = kTileW / kCell;
-constexpr int kMaxLevels = 16;
 static_assert(kTileH == kCell && kTileW % kCell == 0, "a tile is whole cells");
-
-struct LevelTable {
-  int n_levels;
-  int H[kMaxLevels];
-  int W[kMaxLevels];
-  int img_offset[kMaxLevels];      // first pixel of the level in a frame
-  int cell_offset[kMaxLevels];     // first cell of the level in a frame
-  int first_tile[kMaxLevels + 1];  // blockIdx.x of the level's first tile
-};
 
 // (v, i) <- the better of (v, i) and (ov, oi): higher score, then lower
 // in-cell index.
@@ -81,7 +73,7 @@ __device__ __forceinline__ void reduce16(float& v, int& i) {
   }
 }
 
-__global__ void __launch_bounds__(kTileW* kTileH, 3)
+__global__ void __launch_bounds__(kThreads, 3)
     fast_cell_best_kernel(const float* __restrict__ img,
                           float* __restrict__ out_best, int* __restrict__ out_y,
                           int* __restrict__ out_x, const LevelTable tab,
@@ -92,13 +84,10 @@ __global__ void __launch_bounds__(kTileW* kTileH, 3)
   __shared__ float s_lo[kRingH][kRingW];
   __shared__ float s_val[2][kCellsPerTile][kCell];  // [map][cell][row]
   __shared__ int s_idx[2][kCellsPerTile][kCell];
-  __shared__ short s_list[kRingH * kRingW];  // ring positions to score in full
+  __shared__ short s_list[kRing];  // ring positions to score in full
   __shared__ int s_count;
 
-  int level = 0;
-  while (level + 1 < tab.n_levels &&
-         static_cast<int>(blockIdx.x) >= tab.first_tile[level + 1])
-    ++level;
+  const int level = find_level(tab, static_cast<int>(blockIdx.x));
   const int H = tab.H[level], W = tab.W[level];
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const int tile = static_cast<int>(blockIdx.x) - tab.first_tile[level];
@@ -110,7 +99,6 @@ __global__ void __launch_bounds__(kTileW* kTileH, 3)
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTileW + tx;
-  constexpr int nthreads = kTileW * kTileH;
   const int cells_x = (W + kCell - 1) / kCell;
 
   // a tile that misses the margin box holds only empty cells
@@ -128,66 +116,18 @@ __global__ void __launch_bounds__(kTileW* kTileH, 3)
   }
 
   if (tid == 0) s_count = 0;
-  load_tile(im, H, W, y0, x0, tid, nthreads, s_img);
+  load_tile(im, H, W, y0, x0, tid, kThreads, s_img);
   __syncthreads();
-
-  // tile + 1-px ring: -inf off-image, 0 outside the 3-px band, outside the
-  // margin box and the 1-px ring its NMS reads, and where the compass test
-  // fails; the positions that pass it are listed (one atomic a warp)
-  const unsigned int lane_lt = (1u << (tid & 31)) - 1u;
-  for (int base = 0; base < kRingH * kRingW; base += nthreads) {
-    const int i = base + tid;
-    const int ry = i / kRingW, rx = i % kRingW;
-    const int gy = y0 - 1 + ry, gx = x0 - 1 + rx;
-    bool pass = false;
-    if (i < kRingH * kRingW) {
-      const bool off = gy < 0 || gy >= H || gx < 0 || gx >= W;
-      const float v = off ? -__int_as_float(0x7f800000) : 0.0f;
-      s_hi[ry][rx] = v;
-      s_lo[ry][rx] = v;
-      pass = gy >= 3 && gy < H - 3 && gx >= 3 && gx < W - 3 &&
-             gy >= margin - 1 && gy <= H - margin && gx >= margin - 1 &&
-             gx <= W - margin &&
-             compass_test(s_img, ry + kHalo - 1, rx + kHalo - 1, th_lo);
-    }
-    const unsigned int m = __ballot_sync(0xFFFFFFFFu, pass);
-    int first = 0;
-    if ((tid & 31) == 0 && m != 0u) first = atomicAdd(&s_count, __popc(m));
-    first = __shfl_sync(0xFFFFFFFFu, first, 0);
-    if (pass) s_list[first + __popc(m & lane_lt)] = static_cast<short>(i);
-  }
-  __syncthreads();
-
-  // the listed positions, scored in full at each threshold
-  const int n_listed = s_count;
-  for (int j = tid; j < n_listed; j += nthreads) {
-    const int i = s_list[j];
-    const int ry = i / kRingW, rx = i % kRingW;
-    s_lo[ry][rx] = fast_score(s_img, ry + kHalo - 1, rx + kHalo - 1, th_lo);
-    s_hi[ry][rx] = fast_score(s_img, ry + kHalo - 1, rx + kHalo - 1, th_hi);
-  }
-  __syncthreads();
+  score_ring(s_img, s_hi, s_lo, s_list, &s_count, H, W, y0, x0, margin, th_hi,
+             th_lo, tid);
 
   // this thread's pixel: NMS, then the margin mask (margin >= 0, so the
   // off-image pixels of a ragged cell fall outside the box and count as 0,
   // like padding)
   const int gy = y0 + ty, gx = x0 + tx;
   float vh = 0.0f, vl = 0.0f;
-  if (gy >= margin && gy < H - margin && gx >= margin && gx < W - margin) {
-    float mh = s_hi[ty][tx], ml = s_lo[ty][tx];
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        mh = fmaxf(mh, s_hi[ty + dy][tx + dx]);
-        ml = fmaxf(ml, s_lo[ty + dy][tx + dx]);
-      }
-    }
-    const float ch = s_hi[ty + 1][tx + 1];
-    const float cl = s_lo[ty + 1][tx + 1];
-    vh = ch >= mh ? ch : 0.0f;
-    vl = cl >= ml ? cl : 0.0f;
-  }
+  if (gy >= margin && gy < H - margin && gx >= margin && gx < W - margin)
+    nms_pair(s_hi, s_lo, ty, tx, vh, vl);
 
   // a warp is one tile row = one row of each of the tile's two cells
   int ih = (ty << 4) | (tx & (kCell - 1));  // row-major index in the cell
@@ -241,24 +181,11 @@ extern "C" int fast_cell_best(const void* img, void* best, void* ys, void* xs,
                               const int* img_offsets, const int* cell_offsets,
                               int margin, float th_hi, float th_lo,
                               void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || n_frames < 1 ||
-      n_frames > 65535 || margin < 0 || !(th_hi >= th_lo))
+  if (n_frames < 1 || n_frames > 65535 || margin < 0 || !(th_hi >= th_lo))
     return static_cast<int>(cudaErrorInvalidValue);
   LevelTable tab;
-  tab.n_levels = n_levels;
-  int tiles = 0;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    const bool used = l < n_levels;
-    tab.H[l] = used ? heights[l] : 0;
-    tab.W[l] = used ? widths[l] : 0;
-    tab.img_offset[l] = used ? img_offsets[l] : 0;
-    tab.cell_offset[l] = used ? cell_offsets[l] : 0;
-    tab.first_tile[l] = tiles;
-    if (used)
-      tiles += ((heights[l] + kTileH - 1) / kTileH) *
-               ((widths[l] + kTileW - 1) / kTileW);
-  }
-  tab.first_tile[kMaxLevels] = tiles;
+  const int tiles = make_level_table(tab, n_levels, heights, widths, img_offsets,
+                                     cell_offsets);
   if (tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTileW, kTileH);
   const dim3 grid(tiles, n_frames);

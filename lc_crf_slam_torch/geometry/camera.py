@@ -35,6 +35,11 @@ class Pinhole(NamedTuple):
     def has_distortion(self) -> bool:
         return any(abs(v) > 1e-12 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
+    def intrinsic_matrix(self, device=None) -> torch.Tensor:
+        """The 3x3 float32 K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+
 
 def project_points(cam: Pinhole, p_cam: torch.Tensor):
     """Camera-frame points (..., 3) -> pixel (..., 2), depth (...,); no

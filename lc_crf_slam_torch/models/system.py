@@ -870,12 +870,13 @@ class SLAMSystem:
         full: further insertions are dropped."""
         if self._capacity_warned:
             return
-        n_kf, n_pt = torch.stack([self.map.n_kfs, self.map.n_points]).tolist()
+        # one host read: n_points is a high-water mark (slots are
+        # recycled), so the live count decides
+        n_kf, n_pt, n_alive = torch.stack([
+            self.map.n_kfs, self.map.n_points,
+            torch.sum(self.map.p_alive, dtype=torch.int32)]).tolist()
         full_kf = n_kf >= self.cfg.map.max_keyframes
-        # n_points is a high-water mark (slots are recycled): check the
-        # live count only once saturation is possible
-        full_pt = n_pt >= self.cfg.map.max_points and \
-            int(torch.sum(self.map.p_alive)) >= self.cfg.map.max_points
+        full_pt = n_pt >= self.cfg.map.max_points and n_alive >= self.cfg.map.max_points
         if full_kf or full_pt:
             what = "keyframe" if full_kf else "point"
             msg = (f"lc_crf_slam_torch: {what} capacity reached "

@@ -6,9 +6,12 @@ Both replace lc_crf_slam_tpu/ops/pallas_fast.py::fast_score_dual_pallas.
   cell, the best corner of keypoint selection (score, y, x) without
   writing the score maps. Plain version: `fast_cell_best_plain`
   (`ops/fast.py::fast_score_dual`, then `ops/select.py::cell_best`).
-- `fast_score_dual_nms` (`csrc/fast_nms.cu`) emits both NMS'd score maps
-  of one pyramid level in one launch: the way to look at the maps. Plain
-  version: `ops/fast.py::fast_score_dual`.
+- `fast_nms_dual` (`csrc/fast_nms.cu`) emits both NMS'd score maps of
+  every level of every frame of a batch in one launch, as two buffers laid
+  out as `PyramidBatch.flat`: the way to look at the maps. Plain version:
+  `fast_nms_dual_plain` (`ops/fast.py::fast_score_dual` per frame and
+  level). `fast_score_dual_nms` keeps the TPU kernel's one-level
+  signature and launches it with a one-level table.
 A tensor on the CPU goes to the plain version; a CUDA tensor goes to the
 kernel, and anything the kernel does not take raises.
 """
@@ -42,23 +45,91 @@ def reset_launches() -> None:
     cell_launches = 0
 
 
+MAX_LEVELS = 16       # the level table csrc/fast_common.cuh passes by value
+MAX_FRAMES = 65535    # gridDim.y
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from ..kernels.build import load
 
-    lib = load("fast_nms")
-    fn = lib.fast_nms_dual
+    fn = load("fast_nms").fast_nms_dual
+    ints = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ints, ints, ints,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fast_score_dual_cuda(img: torch.Tensor, th_high: float, th_low: float):
-    """Launch the kernel on the current stream: (H, W) float32 contiguous
-    CUDA tensor -> (score_high, score_low)."""
+def _check_batch(flat: torch.Tensor, shapes, th_high: float, th_low: float,
+                 what: str) -> None:
+    """Raise on a pyramid buffer or thresholds the FAST kernels do not take."""
+    if not flat.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor")
+    if flat.dtype != torch.float32 or flat.dim() != 2 or not flat.is_contiguous():
+        raise ValueError(
+            f"need a contiguous (B, pixels) float32 buffer, got {flat.dtype} "
+            f"{tuple(flat.shape)} contiguous={flat.is_contiguous()}")
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"need 1 to {MAX_LEVELS} levels, got {len(shapes)}")
+    if not 1 <= flat.shape[0] <= MAX_FRAMES:
+        raise ValueError(f"need 1 to {MAX_FRAMES} frames, got {flat.shape[0]}")
+    if sum(h * w for h, w in shapes) != flat.shape[1]:
+        raise ValueError("level shapes do not add up to the buffer's row length")
+    if not th_high >= th_low:
+        raise ValueError(f"need th_high >= th_low, got {th_high}, {th_low}")
+
+
+def fast_nms_dual_cuda(pyr: PyramidBatch, th_high: float, th_low: float):
+    """One launch on the current stream over all levels of all frames of
+    `pyr` (a contiguous float32 CUDA buffer): (score_high, score_low), each
+    laid out as `pyr.flat`."""
     global launches
+    flat = pyr.flat
+    _check_batch(flat, pyr.shapes, th_high, th_low, "fast_nms_dual_cuda")
+    hi = torch.empty_like(flat)
+    lo = torch.empty_like(flat)
+    n = len(pyr.shapes)
+    table = ctypes.c_int * n
+    with torch.cuda.device(flat.device):
+        err = _lib()(flat.data_ptr(), hi.data_ptr(), lo.data_ptr(), flat.shape[0],
+                     flat.stride(0), n, table(*[h for h, _ in pyr.shapes]),
+                     table(*[w for _, w in pyr.shapes]), table(*pyr.offsets),
+                     float(th_high), float(th_low),
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fast_nms_dual launch failed: cudaError {err}")
+    launches += 1
+    return hi, lo
+
+
+def fast_nms_dual_plain(pyr: PyramidBatch, th_high: float, th_low: float):
+    """The plain version of the map kernel: `fast_score_dual` on each
+    level of each frame, into two buffers laid out as `pyr.flat`."""
+    hi, lo = torch.empty_like(pyr.flat), torch.empty_like(pyr.flat)
+    for l, (h, w) in enumerate(pyr.shapes):
+        off = pyr.offsets[l]
+        for b, img in enumerate(pyr.level(l)):
+            ph, pl = fast_score_dual(img, th_high, th_low)
+            hi[b, off: off + h * w] = ph.reshape(-1)
+            lo[b, off: off + h * w] = pl.reshape(-1)
+    return hi, lo
+
+
+def fast_nms_dual(pyr: PyramidBatch, th_high: float, th_low: float):
+    """Both NMS'd maps of every level of every frame: the kernel for a CUDA
+    buffer, the plain version for a CPU buffer."""
+    if pyr.flat.is_cuda:
+        return fast_nms_dual_cuda(pyr, th_high, th_low)
+    if pyr.flat.device.type != "cpu":
+        raise ValueError(f"no FAST path for device {pyr.flat.device}")
+    return fast_nms_dual_plain(pyr, th_high, th_low)
+
+
+def fast_score_dual_cuda(img: torch.Tensor, th_high: float, th_low: float):
+    """The map kernel on one level, a one-level table: (H, W) float32
+    contiguous CUDA tensor -> (score_high, score_low)."""
     if not img.is_cuda:
         raise ValueError("fast_score_dual_cuda needs a CUDA tensor")
     if img.dtype != torch.float32 or img.dim() != 2 or not img.is_contiguous():
@@ -66,16 +137,9 @@ def fast_score_dual_cuda(img: torch.Tensor, th_high: float, th_low: float):
             f"need a contiguous 2-D float32 image, got {img.dtype} "
             f"{tuple(img.shape)} contiguous={img.is_contiguous()}")
     H, W = img.shape
-    hi = torch.empty_like(img)
-    lo = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        err = _lib()(img.data_ptr(), hi.data_ptr(), lo.data_ptr(), H, W,
-                     float(th_high), float(th_low),
-                     torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fast_nms_dual launch failed: cudaError {err}")
-    launches += 1
-    return hi, lo
+    hi, lo = fast_nms_dual_cuda(PyramidBatch(img.view(1, H * W), ((H, W),)),
+                                th_high, th_low)
+    return hi.view(H, W), lo.view(H, W)
 
 
 def fast_score_dual_nms(img: torch.Tensor, th_high: float, th_low: float):
@@ -114,20 +178,12 @@ def fast_cell_best_cuda(pyr: PyramidBatch, th_high: float, th_low: float,
     y int32, x int32), each (B, n_cells_l)."""
     global cell_launches
     flat = pyr.flat
-    if not flat.is_cuda:
-        raise ValueError("fast_cell_best_cuda needs a CUDA tensor")
-    if flat.dtype != torch.float32 or flat.dim() != 2 or not flat.is_contiguous():
-        raise ValueError(
-            f"need a contiguous (B, pixels) float32 buffer, got {flat.dtype} "
-            f"{tuple(flat.shape)} contiguous={flat.is_contiguous()}")
+    _check_batch(flat, pyr.shapes, th_high, th_low, "fast_cell_best_cuda")
     if cell != KERNEL_CELL:
         raise ValueError(f"the kernel is compiled for cell={KERNEL_CELL}, got {cell}")
-    if margin < 0 or not th_high >= th_low:
-        raise ValueError(f"need margin >= 0 and th_high >= th_low, got {margin}, "
-                         f"{th_high}, {th_low}")
+    if margin < 0:
+        raise ValueError(f"need margin >= 0, got {margin}")
     n = len(pyr.shapes)
-    if sum(h * w for h, w in pyr.shapes) != flat.shape[1]:
-        raise ValueError("level shapes do not add up to the buffer's row length")
     counts = _cell_counts(pyr.shapes, cell)
     cell_offsets = [sum(counts[:l]) for l in range(n)]
     B, total = flat.shape[0], sum(counts)

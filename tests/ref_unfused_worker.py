@@ -6,12 +6,14 @@ test_torch_capacity.py). The caller starts it in a fresh process
 with XLA_FLAGS=--xla_backend_optimization_level=0 (JAX reads the flag at
 start-up) and reads the npz it writes:
 
-    python tests/ref_unfused_worker.py OUT.npz N_FRAMES [--world orbit16]
+    python tests/ref_unfused_worker.py OUT.npz N_FRAMES [--world NAME]
         [--states DIR --first K] [--run M]
 
 `--world`: "pan" (`torch_parity.PAN_WORLD`, QVGA, the default
-configuration) or "orbit16" (`ORBIT_WORLD` at 640x480 with `ORBIT_CFG`'s
-16 keyframe slots), as `torch_parity.UNFUSED_RUNS` lists them. `--run M`:
+configuration), "pan4096" (the same with 4096 point slots, so that the
+point table recycles) or "orbit16" (`ORBIT_WORLD` at 640x480 with
+`ORBIT_CFG`'s 16 keyframe slots and 4096 point slots), as
+`torch_parity.UNFUSED_RUNS` lists them. `--run M`:
 the world's first M frames (past N_FRAMES its trajectory goes on).
 `--states DIR`: after each frame k >= K the whole system state goes to
 DIR/state_{k:03d}.npz (`save_state`), so that a test can start the port

@@ -138,6 +138,53 @@ def test_add_points_recycles_under_pressure(full_map):
     assert (np.asarray(ref.kf_obs) == -2).any() and int(ref.tomb_n) > 0
 
 
+@pytest.mark.parametrize("dead_slots", [0, 1])
+def test_point_capacity_full_event_matches_reference(dead_slots):
+    """The point branch of `capacity_full`: a map handed to each package's
+    system with every point slot live (or all but `dead_slots`), one
+    keyframe insert by each package's `add_keyframe`, then the system's
+    capacity check, twice. With every slot live both say so once, at the
+    same record, naming the point table as saturated; with one slot dead
+    (the high-water mark at capacity, the live count not) neither says
+    anything."""
+    from lc_crf_slam_tpu.models.system import SLAMSystem as RefSystem
+    from lc_crf_slam_torch.models.system import SLAMSystem
+
+    cfg = SLAMConfig(map=MapConfig(max_points=512, max_keyframes=32, max_features=512))
+    P, K = cfg.map.max_points, cfg.map.max_features
+    rng = np.random.default_rng(11)
+    xyz = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1.5, 1.5, P),
+                    rng.uniform(2.5, 6, P)], -1).astype(np.float32)
+    desc = rng.integers(0, 2**32, (P, 8), dtype=np.uint32)
+    m, ids = ref_ms.add_points(ref_ms.empty_map(cfg), jnp.asarray(xyz), jnp.asarray(desc),
+                               jnp.zeros((P, 3)), jnp.zeros(P), jnp.full((P,), 100.0),
+                               jnp.ones(P, bool), jnp.asarray(0, jnp.int32))
+    assert int(m.n_points) == P and bool(m.p_alive.all())
+    m = m._replace(p_alive=m.p_alive.at[:dead_slots].set(False))
+    uv = np.stack([rng.uniform(0, 320, K), rng.uniform(0, 240, K)], -1).astype(np.float32)
+    frame = frame_from_observations(uv, np.full(K, 3.0, np.float32), desc[:K], K, CAM_REF)
+    obs = np.array(ids[:K], np.int32)
+    ref = RefSystem(CAM_REF, cfg)
+    ref.map, _ = ref_ms.add_keyframe(m, frame, jnp.eye(4), jnp.asarray(0.5), jnp.asarray(obs))
+    port = SLAMSystem(CAM, cfg, device="cpu")
+    port.map, _ = mapstate.add_keyframe(
+        convert.map_to_torch(m), convert.frame_to_torch(frame), torch.eye(4),
+        torch.tensor(0.5, dtype=torch.float64), torch.from_numpy(obs))
+    for slam in (ref, port):
+        slam._warn_if_at_capacity()
+        slam._warn_if_at_capacity()
+    assert int(port.map.n_kfs) == int(ref.map.n_kfs) == 1
+    events = [[(i, e["event"], e["detail"].split(": ", 1)[1]) for i, e in
+               enumerate(slam.stats) if "event" in e] for slam in (ref, port)]
+    assert events[0] == events[1]
+    if dead_slots:
+        assert events[0] == []
+    else:
+        assert [e[:2] for e in events[0]] == [(0, "capacity_full")]
+        assert "point capacity reached" in events[0][0][2]
+        assert "live points saturated" in events[0][0][2]
+
+
 ORBIT_FRAMES = 45
 ORBIT_WORLD_FRAMES = 31     # the orbit's period, as the tracking phase's world
 
@@ -147,7 +194,8 @@ def test_orbit_past_keyframe_capacity_matches_reference(tmp_path):
     """chip_smoke.py's capacity phase on the CPU: the port's `track_rgbd`
     (mapping, the CRF and loop closing on, the reference's draws) over 45
     frames of the tracking phase's orbit world at 640x480 with 16 keyframe
-    slots (`torch_parity.ORBIT_CFG`), against the reference run op for op
+    slots and 4096 point slots (`torch_parity.ORBIT_CFG`; the point table
+    recycles from frame 38), against the reference run op for op
     over the same frames (tests/ref_unfused_worker.py; the jitted
     reference's fused rounding moves the poses by ~1 mm within a few
     frames): the table fills, both say so once (`capacity_full`) at the
@@ -174,3 +222,6 @@ def test_orbit_past_keyframe_capacity_matches_reference(tmp_path):
     assert [s["status"] for s in frames] == ref["status"].tolist()
     _, poses = port.get_trajectory()
     assert_poses_close(ref["poses"], poses)
+    # the point table's high-water mark reaches its end too (frame 38),
+    # and add_points recycles from there on (chip_smoke.py's gates)
+    assert int(port.map.n_points) == port.cfg.map.max_points and int(port.map.tomb_n) > 0

@@ -98,3 +98,28 @@ def test_fused_wrapper_refuses_other_devices():
     pyr = build_pyramid_batch(torch.from_numpy(IMAGES["random"])[None], 2, 1.2)
     with pytest.raises(ValueError):
         fast_kernel.fast_cell_best_cuda(pyr, 20.0, 7.0)
+
+
+def test_batched_map_wrapper_routes_cpu_to_plain_and_counts_no_launch():
+    """The map kernel's batched entry on a CPU buffer: the plain version,
+    each level of each frame `fast_score_dual`'s maps at its place in the
+    pyramid buffer's layout; no launch counted; other devices refused."""
+    from lc_crf_slam_torch.ops.pyramid import PyramidBatch, build_pyramid_batch
+
+    imgs = torch.from_numpy(np.stack([IMAGES["random"], IMAGES["random"][::-1].copy()]))
+    pyr = build_pyramid_batch(imgs, 3, 1.2)
+    before = (fast_kernel.launches, fast_kernel.cell_launches)
+    hi, lo = fast_kernel.fast_nms_dual(pyr, 20.0, 7.0)
+    assert (fast_kernel.launches, fast_kernel.cell_launches) == before
+    assert hi.shape == lo.shape == pyr.flat.shape
+    for l, (h, w) in enumerate(pyr.shapes):
+        off = pyr.offsets[l]
+        for b in range(2):
+            ph, pl = fast_score_dual(pyr.level(l)[b], 20.0, 7.0)
+            assert torch.equal(hi[b, off: off + h * w].view(h, w), ph)
+            assert torch.equal(lo[b, off: off + h * w].view(h, w), pl)
+    meta = PyramidBatch(torch.empty((1, 32 * 32), device="meta"), ((32, 32),))
+    with pytest.raises(ValueError):
+        fast_kernel.fast_nms_dual(meta, 20.0, 7.0)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_nms_dual_cuda(pyr, 20.0, 7.0)

@@ -127,6 +127,17 @@ def test_pinhole_and_config_match_reference():
         ref_config.SLAMConfig())
 
 
+@pytest.mark.parametrize("preset", ["TUM1", "TUM2", "TUM3"])
+def test_intrinsic_matrix_matches_reference(preset):
+    """K as float32, exactly the reference's, on the device asked for."""
+    ref = np.asarray(getattr(ref_camera, preset).intrinsic_matrix())
+    out = getattr(camera, preset).intrinsic_matrix()
+    assert out.dtype == torch.float32 and out.device.type == "cpu"
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert ref.dtype == np.float32
+    assert torch.equal(getattr(camera, preset).intrinsic_matrix(device="cpu"), out)
+
+
 @pytest.mark.parametrize("preset", ["TUM1", "TUM2"])
 def test_undistort_pixels_matches_reference(preset):
     """The presets with distortion terms equal the reference's; the 8

@@ -56,6 +56,46 @@ def _pyramid_batch(imgs, n_levels=8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 15])
+@pytest.mark.parametrize("shape", [(480, 640), (134, 179), (200, 300), (7, 7)])
+@pytest.mark.parametrize("kind", ["random", "plateau"])
+def test_batched_map_kernel_bitwise_equals_plain(cuda, batch, shape, kind):
+    """Every level of every frame in one launch, both maps laid out as the
+    pyramid buffer: bitwise the plain version's, level by level (ragged
+    tiles, NMS ties on plateaus, levels smaller than the 3-px border)."""
+    rng = np.random.default_rng(sum(shape) + batch)
+    a = rng.random((batch,) + shape)
+    a = a * 255 if kind == "random" else np.round(a * 3) * 70
+    pyr = _pyramid_batch(torch.tensor(a.astype(np.float32), device=cuda))
+    before = (fast_kernel.launches, fast_kernel.cell_launches)
+    hi, lo = fast_kernel.fast_nms_dual(pyr, 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert (fast_kernel.launches, fast_kernel.cell_launches) == (before[0] + 1, before[1])
+    ph, pl = fast_kernel.fast_nms_dual_plain(pyr, 20.0, 7.0)
+    assert hi.shape == lo.shape == pyr.flat.shape
+    assert torch.equal(hi, ph) and torch.equal(lo, pl)
+
+
+@pytest.mark.cuda
+def test_batched_map_kernel_refuses_bad_input(cuda):
+    """More than 16 levels, more than 65535 frames, a type other than
+    float32 and th_hi < th_lo each raise before a launch."""
+    from lc_crf_slam_torch.ops.pyramid import PyramidBatch
+
+    pyr = _pyramid_batch(torch.zeros((2, 64, 96), device=cuda), n_levels=3)
+    levels17 = PyramidBatch(torch.zeros((1, 17 * 49), device=cuda), ((7, 7),) * 17)
+    frames = PyramidBatch(torch.zeros((65536, 49), device=cuda), ((7, 7),))
+    before = fast_kernel.launches
+    for bad, th in ((levels17, (20.0, 7.0)), (frames, (20.0, 7.0)),
+                    (pyr._replace(flat=pyr.flat.double()), (20.0, 7.0)),
+                    (pyr._replace(flat=pyr.flat.half()), (20.0, 7.0)),
+                    (pyr, (7.0, 20.0)), (pyr._replace(flat=pyr.flat[:, :-1]), (20.0, 7.0))):
+        with pytest.raises(ValueError):
+            fast_kernel.fast_nms_dual_cuda(bad, *th)
+    assert fast_kernel.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,batch", [((480, 640), 1), ((480, 640), 3),
                                          ((240, 320), 15), ((131, 77), 2)])
 @pytest.mark.parametrize("kind", ["random", "plateau"])

@@ -65,10 +65,11 @@ def pan_frames(n):
     return [render(world, k) for k in range(n)]
 
 
-def step_from_state(frames, z, k):
-    """A port system loaded with the reference's state after frame k - 1
-    (`z`), after running frame k with the reference's draws."""
-    port = SLAMSystem(CAM, SLAMConfig(), enable_mapping=True, enable_crf=True, device="cpu")
+def step_from_state(frames, z, k, cfg=SLAMConfig()):
+    """A port system with config `cfg` loaded with the reference's state
+    after frame k - 1 (`z`), after running frame k with the reference's
+    draws."""
+    port = SLAMSystem(CAM, cfg, enable_mapping=True, enable_crf=True, device="cpu")
     load_reference_state(port, z, frames[k - 1][0])
     port.track_rgbd(*frames[k], k / 30.0)
     port.flush_stats()
@@ -120,12 +121,12 @@ def test_pan_step_where_the_runs_part():
     assert within_one_frame(d), d
 
 
-def _committed_view(states, k):
-    """The tier-1 file's contents for frame k: the state after k - 1 and
-    NEXT_KEYS of the state after k."""
+def committed_view(states, k, keys=NEXT_KEYS):
+    """A tier-1 file's contents for frame k: the state after k - 1 and
+    `keys` of the state after k (under "next/")."""
     z, nxt = (np.load(os.path.join(states, f"state_{i:03d}.npz")) for i in (k - 1, k))
     out = {f: z[f] for f in z.files}
-    out.update({f"next/{key}": nxt[key] for key in NEXT_KEYS})
+    out.update({f"next/{key}": nxt[key] for key in keys})
     return out
 
 
@@ -143,7 +144,7 @@ def test_pan_steps_from_the_reference_state(tmp_path):
                                                  "ref_unfused_worker.py"),
                     str(tmp_path / "reference.npz"), str(N_FRAMES), "--states", str(states),
                     "--first", str(SWEEP_FROM - 1)], env=env, check=True, timeout=3600)
-    view = _committed_view(str(states), PARTS_AT)
+    view = committed_view(str(states), PARTS_AT)
     committed = np.load(STATE_FILE)
     same_file = sorted(committed.files) == sorted(view) and all(
         np.array_equal(committed[f], view[f]) for f in view)

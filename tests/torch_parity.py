@@ -43,7 +43,7 @@ PAN_WORLD = dict(n_static=900, n_dynamic=0, seed=5, trajectory="pan", wall=True,
                  pan_leadin=0.1, pan_turns=1.2, pan_translation=0.25,
                  render_depth_noise=0.015)
 # a second pass after the closure: the 130-frame pan world rendered on, at
-# the same yaw per frame, to 1.72 turns (chip_smoke.py's TWO_LOOP_FRAMES)
+# the same yaw per frame, to 1.72 turns (chip_smoke.py stops at frame 158)
 TWO_LOOP_FRAMES = 180
 # the tracking phase's orbit world (chip_smoke.py, bench.py:72-75) without
 # its length: the camera stays on one 600-point scene, and past the
@@ -51,9 +51,16 @@ TWO_LOOP_FRAMES = 180
 # the local-BA window takes) the table fills within ~40 frames at 640x480
 ORBIT_WORLD = dict(n_static=600, n_dynamic=0, seed=0)
 ORBIT_CFG = SLAMConfig(map=MapConfig(max_points=4096, max_keyframes=16))
+# the pan world with the smallest point table tracking allows (its top-k
+# of LOCAL_POINTS = 4096): the high-water mark reaches the table's end
+# near frame 70 and add_points recycles culled slots from then on (the
+# mover-revisit world, tests/test_loopclosure_render_e2e.py:32-55, makes
+# 2312 slots in its 96 frames at this size, short of the mark)
+PAN4096_CFG = SLAMConfig(map=MapConfig(max_points=4096))
 # the runs tests/ref_unfused_worker.py makes, by its --world name: (world,
 # config, camera: "qvga" or "tum3", 640x480)
 UNFUSED_RUNS = {"pan": (PAN_WORLD, SLAMConfig(), "qvga"),
+                "pan4096": (PAN_WORLD, PAN4096_CFG, "qvga"),
                 "orbit16": (ORBIT_WORLD, ORBIT_CFG, "tum3")}
 
 
