@@ -42,6 +42,9 @@ SEQ_CFG = SLAMConfig(map=MapConfig(max_points=4096))
 PAN_WORLD = dict(n_static=900, n_dynamic=0, seed=5, trajectory="pan", wall=True,
                  pan_leadin=0.1, pan_turns=1.2, pan_translation=0.25,
                  render_depth_noise=0.015)
+# the same world at 640x480 is chip_smoke.py's loop phase (its LOOP_WORLD,
+# kept there as a copy of its own: the script imports no test)
+LOOP_WORLD = PAN_WORLD
 # a second pass after the closure: the 130-frame pan world rendered on, at
 # the same yaw per frame, to 1.72 turns (chip_smoke.py stops at frame 158)
 TWO_LOOP_FRAMES = 180
@@ -61,7 +64,10 @@ PAN4096_CFG = SLAMConfig(map=MapConfig(max_points=4096))
 # config, camera: "qvga" or "tum3", 640x480)
 UNFUSED_RUNS = {"pan": (PAN_WORLD, SLAMConfig(), "qvga"),
                 "pan4096": (PAN_WORLD, PAN4096_CFG, "qvga"),
-                "orbit16": (ORBIT_WORLD, ORBIT_CFG, "tum3")}
+                "orbit16": (ORBIT_WORLD, ORBIT_CFG, "tum3"),
+                "loop640": (LOOP_WORLD, SLAMConfig(), "tum3")}
+# the worker's worlds that run through `track_sequence`, by their chunk
+CHUNKED_RUNS = {"loop640": 15}
 
 
 def cameras(name):
@@ -71,6 +77,32 @@ def cameras(name):
     from lc_crf_slam_tpu.geometry.camera import TUM3 as REF_TUM3
     from lc_crf_slam_torch.geometry.camera import TUM3
     return REF_TUM3, TUM3
+
+
+# the keyframe terms of a chunk step, as `keyframe_terms` names them
+STEP_TERMS = ("frame_idx", "n_inliers", "n_ref_matches", "need_close", "weak",
+              "n_since_kf", "need_kf", "status")
+
+
+def keyframe_terms(cfg, m, ts, ts2, info) -> dict:
+    """The keyframe decision's terms of one `track_step` from `ts` to `ts2`
+    (m: the map it returned, info: its TrackInfo), as `track_step`
+    computes them under `cfg` (in a chunk, the throttled gap), from numpy
+    arrays or torch tensors alike, so that both packages' steps report the
+    same quantities; `m`, `ts`, `ts2` and `info` need only the fields read."""
+    ref_obs = m.kf_obs[ts.ref_kf]
+    ids = ref_obs.clip(min=0)
+    ref_min_obs = 2 if int(m.n_kfs) <= 2 else 3
+    live = (ref_obs >= 0) & m.kf_valid[ts.ref_kf] & m.p_alive[ids] & (
+        m.p_n_obs[ids] >= ref_min_obs)
+    n_ref, n_in, tcfg = int(live.sum()), int(info.n_inliers), cfg.tracking
+    return dict(
+        frame_idx=int(ts.frame_idx), n_inliers=n_in, n_ref_matches=n_ref,
+        need_close=(int(info.n_tracked_close) < tcfg.kf_min_close_tracked
+                    and int(info.n_untracked_close) > tcfg.kf_max_close_insertable),
+        weak=n_in < int(np.float32(tcfg.kf_ref_ratio) * np.float32(n_ref)),
+        n_since_kf=int(ts.n_since_kf), need_kf=bool(info.need_kf),
+        status=int(ts2.status))
 
 
 def render(world, k):
@@ -113,6 +145,7 @@ def use_reference_draws(port, key=None) -> None:
     verification keys split off PRNGKey(7) (or the reference system's
     `_reloc_key` as `key`, uint32 (2,)) one attempt at a time."""
     state = {"key": jax.random.PRNGKey(7) if key is None else jnp.asarray(key, jnp.uint32)}
+    port._reference_keys = state        # the next key, for `save_port_state`
 
     def next_key():
         state["key"], sub = jax.random.split(state["key"])
@@ -283,6 +316,62 @@ def load_reference_state(port, z, gray_prev) -> None:
         "left": int(z["gba_left"]), "kf": int(z["gba_kf"])}
     port._gba_slices_run = int(z["gba_slices_run"])
     use_reference_draws(port, z["reloc_key"])
+
+
+def save_port_state(path, port) -> None:
+    """The port system's state in the layout of tests/ref_unfused_worker.py's
+    `save_state` (map and tracker in the reference's dtypes, cut to the
+    used slots; the loop glue's host state; the next reference key of
+    `use_reference_draws`), so that the reference can start from it
+    (`load_into_reference`)."""
+    from lc_crf_slam_torch import convert
+
+    m = convert.to_numpy(port.map)
+    n_kfs, n_pts = int(m["n_kfs"]), int(m["n_points"])
+    out = {f"map/{f}": a[:n_kfs] if f.startswith("kf_") else
+           a[:n_pts] if f.startswith("p_") else a for f, a in m.items()}
+    out["map/kf_time"] = out["map/kf_time"].astype(np.float32)
+    out.update({f"ts/{f}": a for f, a in convert.to_numpy(port.ts).items()})
+    groups = convert.consistent_groups_to_numpy(port._consistent_groups)
+    out["consistent_masks"] = np.array([g for g, _ in groups], bool).reshape(
+        len(groups), port.map.capacity_kfs)
+    out["consistent_streaks"] = np.array([st for _, st in groups], np.int64)
+    out["last_loop_kf"] = np.int64(port._last_loop_kf)
+    pending = port._gba_pending or {"left": -1, "kf": -1}
+    out["gba_left"], out["gba_kf"] = np.int64(pending["left"]), np.int64(pending["kf"])
+    out["gba_slices_run"] = np.int64(port._gba_slices_run)
+    out["reloc_key"] = np.asarray(port._reference_keys["key"])
+    np.savez_compressed(path, **out)
+
+
+def load_into_reference(ref, z, gray_prev) -> None:
+    """`load_reference_state`'s counterpart: a state of that layout (the
+    worker's `save_state` or `save_port_state`) into the reference system
+    `ref`, with `gray_prev` as the previous frame's image."""
+    from lc_crf_slam_tpu.models.mapstate import MapState as RefMapState, empty_map
+    from lc_crf_slam_tpu.models.tracking import TrackState as RefTrackState
+
+    m = {}
+    for f, empty in empty_map(ref.cfg)._asdict().items():
+        full = np.array(empty)
+        a = z[f"map/{f}"].astype(full.dtype)
+        if full.ndim == 0:
+            full = a.reshape(())
+        else:
+            full[:a.shape[0]] = a
+        m[f] = jnp.asarray(full)
+    ref.map = RefMapState(**m)
+    ref.ts = RefTrackState(**{f: jnp.asarray(z[f"ts/{f}"]) for f in RefTrackState._fields})
+    ref.initialized = True
+    ref._last_gray = jnp.asarray(gray_prev, jnp.float32)
+    ref._last_Tcw = ref.ts.Tcw
+    ref._consistent_groups = [(mask, int(st)) for mask, st in
+                              zip(z["consistent_masks"], z["consistent_streaks"])]
+    ref._last_loop_kf = int(z["last_loop_kf"])
+    ref._gba_pending = None if int(z["gba_left"]) < 0 else {
+        "left": int(z["gba_left"]), "kf": int(z["gba_kf"])}
+    ref._gba_slices_run = int(z["gba_slices_run"])
+    ref._reloc_key = jnp.asarray(z["reloc_key"], jnp.uint32)
 
 
 # ---- the port's track_rgbd against the reference run op for op ----------
