@@ -42,7 +42,7 @@ named self-contained phases alone after the build: loop_per_frame (step
    one detect_loop per in-chunk keyframe, one crf_step per chunk,
    1 + chunks fused launches, and at most frames + 1 host syncs inside a
    chunk. Prints ms/frame over the 30 chunked frames beside the dynamic
-   phase's, the seq_phases split and peak memory.
+   phase's, the split by the chunked path's `chunk.<phase>` spans and peak memory.
 7. Loop phase: the reference's default-config loop world (a 1.2-turn pan
    over a textured wall with depth noise) at 640x480, 130 frames, default
    SLAMConfig and map capacities, through `track_sequence(chunk=15)`. The
@@ -726,6 +726,18 @@ def dynamic_phase(cam, frames, world, name="dynamic"):
     return got, float(np.mean(frame_ms[1:])), poses, slam.kf_log
 
 
+def gba_slices(slam) -> int:
+    """The system's global-BA slices so far: its `global_ba_slice` spans."""
+    return slam.timer.count("global_ba_slice")
+
+
+def chunk_phases(slam, n_frames: int) -> str:
+    """The chunked path's phases so far (its `chunk.<phase>` spans), host
+    ms a frame over `n_frames`."""
+    return ", ".join(f"{name} {s * 1e3 / n_frames:.2f}"
+                     for name, (_, s) in slam.timer.span_totals("chunk.").items())
+
+
 def count_chunks(slam) -> list:
     """Wrap `slam._track_chunk` so that every chunk runs in torch's sync
     debug mode and is timed to a synchronize; the returned list fills with
@@ -781,7 +793,6 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
     cfg = SLAMConfig()          # loop detection on
     slam = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True,
                       device="cuda")
-    slam.seq_phases = {}
     grays = np.stack([f.image for f in frames]).astype(np.float32)
     depths = np.stack([f.depth_image for f in frames]).astype(np.float32)
     stamps = [f.timestamp for f in frames]
@@ -811,13 +822,13 @@ def sequence_phase(cam, frames, world, dyn_ms: float):
     n_kfs = int(slam.map.n_kfs)
     in_chunk_kfs = len(slam.kf_log)
     ms_frame = sum(c[2] for c in chunks) / n_seq
-    total = sum(slam.seq_phases.values())
-    split = ", ".join(f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items())
+    phases = slam.timer.span_totals("chunk.")
+    total = sum(s for _, s in phases.values())
     print(f"sequence: {n_seq} chunked frames in {n_chunks} chunks of {SEQ_CHUNK}: "
           f"{ms_frame:.2f} ms/frame (chunks {[round(c[2], 1) for c in chunks]} ms); "
           f"the same world per frame through track_rgbd (dynamic phase, loop "
           f"detection off): {dyn_ms:.2f} ms/frame")
-    print(f"sequence: seq_phases, host ms/frame: {split} (sum "
+    print(f"sequence: chunk phases, host ms/frame: {chunk_phases(slam, n_seq)} (sum "
           f"{total * 1e3 / n_seq:.2f})")
     print(f"sequence: ATE {ate:.5f} m, keyframes {n_kfs} ({in_chunk_kfs} in chunks), "
           f"lost frames {n_lost}, mapping_step calls {slam.n_mapping_steps}, "
@@ -1013,7 +1024,6 @@ def loop_phase(cam, world, frames):
 
     slam = system.SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
                              device="cuda")
-    slam.seq_phases = {}
     with timed_stages() as (stage_ms, before, _):
         chunks = count_chunks(slam)
         torch.cuda.synchronize()
@@ -1022,7 +1032,7 @@ def loop_phase(cam, world, frames):
         poses_tcw = slam.track_sequence(grays, depths, stamps, chunk=SEQ_CHUNK)
         torch.cuda.synchronize()
         got = path_launches()
-        slices_in_run = slam._gba_slices_run
+        slices_in_run = gba_slices(slam)
         slam.flush_stats()
         ts, poses = slam.get_trajectory()       # finishes a pending global BA
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
@@ -1042,12 +1052,11 @@ def loop_phase(cam, world, frames):
     ms_frame = sum(c[2] for c in chunks) / n_seq
     print(f"loop [{card}]: {n_seq} chunked frames in {n_chunks} chunks of {SEQ_CHUNK}: "
           f"{ms_frame:.2f} ms/frame (chunks {[round(c[2], 1) for c in chunks]} ms)")
-    print(f"loop [{card}]: seq_phases, host ms/frame: " + ", ".join(
-        f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items()))
+    print(f"loop [{card}]: chunk phases, host ms/frame: {chunk_phases(slam, n_seq)}")
     for name, ms in stage_ms.items():
         print(f"loop [{card}]: {name} x{len(ms)}: ms {[round(t, 1) for t in ms]}")
     print(f"loop [{card}]: loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops}, "
-          f"global-BA slices {slam._gba_slices_run} ({slices_in_run} inside the run), "
+          f"global-BA slices {gba_slices(slam)} ({slices_in_run} inside the run), "
           f"keyframes {n_kfs}, lost frames {n_lost}, kernel launches (fused, map, "
           f"segment sum) {got}, host syncs per chunk {[c[1] for c in chunks]} with "
           f"{[c[3] for c in chunks]} (verified candidates, relocalisation attempts), "
@@ -1068,8 +1077,8 @@ def loop_phase(cam, world, frames):
         failures.append(f"chunks ending at frames {lost_at} lost frames, the first "
                         f"closure came after frame {first_closure}, final status "
                         f"{int(slam.ts.status)}")
-    if slam._gba_slices_run < 1 or slam._gba_pending is not None:
-        failures.append(f"{slam._gba_slices_run} global-BA slices, pending "
+    if gba_slices(slam) < 1 or slam._gba_pending is not None:
+        failures.append(f"{gba_slices(slam)} global-BA slices, pending "
                         f"{slam._gba_pending}")
     if len(chunks) != n_chunks:
         failures.append(f"{len(chunks)} chunks, expected {n_chunks}")
@@ -1160,7 +1169,6 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float):
 
     slam = SLAMSystem(cam, SLAMConfig(), enable_mapping=True, enable_crf=True,
                       device="cuda")
-    slam.seq_phases = {}
     lefts = np.stack([f.image for f in frames]).astype(np.float32)
     chunks = count_chunks(slam)
     torch.cuda.synchronize()
@@ -1190,8 +1198,7 @@ def stereo_sequence_phase(cam, frames, rights, world, seq_ms: float):
           f"of {SEQ_CHUNK}: {ms_frame:.2f} ms/frame (chunks "
           f"{[round(c[2], 1) for c in chunks]} ms); the RGB-D sequence phase on the same "
           f"left frames: {seq_ms:.2f} ms/frame")
-    print(f"stereo sequence: seq_phases, host ms/frame: " + ", ".join(
-        f"{k} {v * 1e3 / n_seq:.2f}" for k, v in slam.seq_phases.items()))
+    print(f"stereo sequence: chunk phases, host ms/frame: {chunk_phases(slam, n_seq)}")
     print(f"stereo sequence: ATE {ate:.5f} m, keyframes {n_kfs}, lost frames {n_lost}, "
           f"mapping_step calls {slam.n_mapping_steps}, crf_step calls "
           f"{slam.n_crf_steps}, kernel launches (fused, map, segment sum) {got}, host syncs per "
@@ -1783,7 +1790,7 @@ def loop_per_frame_phase(cam, world, frames):
                 at_loop_end = loop_world_result(slam, before, gt_times, gt, failures)
                 verified_then = slam.n_verify_loops
             pending = slam._gba_pending is not None
-            slices, loops = slam._gba_slices_run, len(slam.loop_log)
+            slices, loops = gba_slices(slam), len(slam.loop_log)
             verified = slam.n_verify_loops
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -1795,7 +1802,7 @@ def loop_per_frame_phase(cam, world, frames):
                     torch.cuda.set_sync_debug_mode("default")
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
-            rows.append((ms, count_syncs(caught), pending, slam._gba_slices_run - slices,
+            rows.append((ms, count_syncs(caught), pending, gba_slices(slam) - slices,
                          len(slam.loop_log) > loops, slam.n_verify_loops - verified))
         got = path_launches()
         slam.flush_stats()
@@ -1832,7 +1839,7 @@ def loop_per_frame_phase(cam, world, frames):
           f"turns) loop_log {slam.loop_log}, verified candidates {slam.n_verify_loops} "
           f"({slam.n_verify_loops - verified_then} after frame {LOOP_FRAMES - 1}, by frame "
           f"{ {k: r[5] for k, r in enumerate(rows) if k >= LOOP_FRAMES and r[5]} }), detect_loop "
-          f"calls {slam.n_detect_loops}, global-BA slices {slam._gba_slices_run}, keyframes "
+          f"calls {slam.n_detect_loops}, global-BA slices {gba_slices(slam)}, keyframes "
           f"{len(slam.kf_log)} ({int(m.n_kfs)} in the map), lost frames {lost}, ATE "
           f"{ate:.5f} m, kernel launches (fused, map, segment sum) {got}, host syncs on the "
           f"{len(quiet)} non-keyframe frames without a budget: {quiet_syncs}, on keyframe "
@@ -1902,7 +1909,7 @@ def loop_world_result(slam, before, gt_times, gt, failures) -> str:
     n_same, ate_before, ate_after, steps = closure_kf_ates(before, m, gt_times, gt)
     print(f"loop per frame [{card}]: after {LOOP_FRAMES} frames loop_log {slam.loop_log}, "
           f"verified candidates {slam.n_verify_loops}, global-BA slices "
-          f"{slam._gba_slices_run}, keyframes {len(slam.kf_log)}, lost frames {lost}, ATE "
+          f"{gba_slices(slam)}, keyframes {len(slam.kf_log)}, lost frames {lost}, ATE "
           f"{ate:.5f} m; the {n_same} keyframes alive at the first closure: ATE "
           f"{ate_before:.5f} m just before it, {[round(a, 5) for a in steps]} m after "
           f"correct_loop and each global-BA slice, {ate_after:.5f} m at frame "
@@ -1990,7 +1997,7 @@ def mover_revisit_phase():
           f"{render_s:.1f} s) through track_rgbd, median "
           f"{statistics.median(frame_ms[3:]):.2f} ms/frame after the first 3; loop_log "
           f"{slam.loop_log}, verified candidates {slam.n_verify_loops}, global-BA slices "
-          f"{slam._gba_slices_run}, keyframes {len(slam.kf_log)} ({n_kfs} in the map), "
+          f"{gba_slices(slam)}, keyframes {len(slam.kf_log)} ({n_kfs} in the map), "
           f"early-late covisibility {early_late:.0f}, lost frames {lost}, ATE {ate:.5f} m; "
           f"live points {int(alive.sum())}, mover points {int(gtd.sum())} (judged "
           f"{int(judged.sum())}); kernel launches (fused, map, segment sum) {got}; host "

@@ -11,6 +11,10 @@ under a tight reprojection window. Its random draws are inputs (the
 hypothesis index triples and the audit uniforms): the pipeline draws them
 with a `torch.Generator`, the parity tests pass the reference's
 `jax.random` draws.
+
+Inside a `SLAMSystem` entry each call of either is a span of its name
+(`utils/profiling.spanned`), whoever the caller: tracking, loop
+verification or relocalisation.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from ..config import PoseOptConfig
 from ..geometry.align import umeyama_alignment
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import exp_se3, hat_so3, make_se3
+from ..utils.profiling import spanned
 
 
 class PoseOptResult(NamedTuple):
@@ -76,6 +81,7 @@ def _solve6(H, g):
     return -torch.linalg.solve_ex(H, g[..., None])[0][..., 0]
 
 
+@spanned
 def pose_optimize(
     cam: Pinhole,
     Tcw0: torch.Tensor,
@@ -182,6 +188,7 @@ def draw_consensus(p: torch.Tensor, n_hypotheses: int,
     return idx, u
 
 
+@spanned
 def pose_consensus(
     cam: Pinhole,
     T_lm: torch.Tensor,        # (4, 4) the LM solve to audit

@@ -52,6 +52,14 @@ eight-point solver's status; the verdict with the match count) and three
 times on success (and the map's point count). Tables made on the host and
 cached per device (the front-end's, triangulation's K^-1) cost one more
 read each at their first use in a process.
+
+Every entry call is a root span of `self.timer` named after the entry
+(`utils/profiling.py`), and installs the timer for the free functions'
+spans (`track_step`'s sections, `pose_optimize`, `pose_consensus`) for its
+length. The per-frame RGB-D path's spans and their parents are
+PER_FRAME_SPANS; every device->host read of an entry's path is a
+`readback` span. The chunked path's phases are `chunk.<phase>` spans
+(CHUNK_PHASES) under the `track_sequence` root.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ from ..ops.ransac import multinomial_sampler
 from ..ops.stereo import stereo_match
 from ..parallel.mesh import Mesh
 from ..utils.io_tum import write_trajectory_tum
-from ..utils.profiling import StageTimer
+from ..utils.profiling import Sections, StageTimer, installed
 from .ba import draw_consensus
 from .crf import crf_step
 from .frame import Frame, build_frame, build_frames, frame_from_observations
@@ -87,6 +95,7 @@ from .loopclosing import (correct_loop, correct_loop_sim3, detect_loop, global_b
 from .mapping import mapping_step
 from .mapstate import MapState, add_keyframe, add_points, empty_map
 from .tracking import (
+    SECTIONS as TRACK_SECTIONS,
     TrackState,
     empty_track_state,
     initialize_map,
@@ -99,6 +108,53 @@ _AUDIT_SEED = 17   # the reference keys its audit draws with PRNGKey(17)
 _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
 _LOOP_SEED = 11    # the port's own stream for the loop verification's draws
 _MONO_SEED = 19    # ... and for the two-view initialisation's
+
+_ENTRY = "track_rgbd"
+# the spans of the per-frame RGB-D path: {span: the spans it runs in}
+PER_FRAME_SPANS = {
+    "upload": {_ENTRY},                 # _upload of the frame's arrays
+    "frontend": {_ENTRY},               # build_frame
+    "initialize_map": {_ENTRY},         # the map's first frame
+    "track": {_ENTRY},                  # track_step, by its sections:
+    **{name: {"track"} for name in TRACK_SECTIONS},
+    "pose_optimize": {"track.motion", "track.fallback", "track.final", "track.audit",
+                      "relocalize", "verify_loop"},
+    "pose_consensus": {"track.audit"},
+    "relocalize": {_ENTRY},
+    "spawn_flow_dyn": {_ENTRY},
+    "insert_kf": {_ENTRY},
+    "mapping": {_ENTRY},
+    "loop": {_ENTRY},                   # _try_close_loop
+    "detect_loop": {"loop"},
+    "verify_loop": {"loop"},
+    "correct_loop": {"loop"},
+    "correct_loop_sim3": {"loop"},
+    "global_ba_slice": {_ENTRY, "loop"},
+    "search_and_fuse": {_ENTRY, "loop"},
+    "flow_evidence": {_ENTRY},
+    "crf_step": {_ENTRY},
+    # the frame's control scalars, the capacity check, the loop detection's
+    # fetch, a verification's verdict, a relocalisation's
+    "readback": {_ENTRY, "relocalize", "loop", "verify_loop"},
+}
+# the chunked path's phases, in order, each a span under `track_sequence`
+CHUNK_PHASES = ("chunk.frontend", "chunk.lk", "chunk.steps", "chunk.crf",
+                "chunk.chunk_fetch", "chunk.host_misc", "chunk.reloc_host",
+                "chunk.loop_host")
+
+
+def _entry(fn):
+    """A public entry: each call is a root span of its name on
+    `self.timer`, installed for the free functions' spans."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def entry(self, *args, **kwargs):
+        timer = self.timer
+        with installed(timer), timer.stage(name):
+            return fn(self, *args, **kwargs)
+
+    return entry
 
 
 def _project(cam: Pinhole, Tcw: torch.Tensor, pw: torch.Tensor):
@@ -155,21 +211,6 @@ def spawn_flow_dyn(cfg: SLAMConfig, cam: Pinhole, gray_cur: torch.Tensor,
     return use & res.ok & (z_prev > 0.05) & (mism > cfg.crf.spawn_flow_gate)
 
 
-class _PhaseClock:
-    """Adds the host seconds between laps to a dict of phases (or to
-    nothing, when the dict is None)."""
-
-    def __init__(self, phases: Optional[dict]):
-        self.phases = phases
-        self.t0 = time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        if self.phases is not None:
-            now = time.perf_counter()
-            self.phases[name] = self.phases.get(name, 0.0) + now - self.t0
-            self.t0 = now
-
-
 def _to_host(items: Sequence) -> np.ndarray:
     """Stack a list whose entries are device tensors (the per-frame path
     defers them) or host values (a chunk's fetch) into one numpy array,
@@ -190,16 +231,16 @@ class SLAMSystem:
     runs only when asked for (`device="cpu"`), as the tests do.
     `log_path` names a JSONL file: `flush_stats` writes each record not yet
     written as one `json.dumps` line, `shutdown` closes it. `timer` times
-    the per-frame stages on the host clock (frontend, track, insert_kf,
-    mapping, global_ba_slice); on the card that is the dispatch, not the
-    device work (`utils/profiling.py`). Keyframe times are float64: the
-    reference's float32 is 128 s apart at Unix times near 1.3e9.
-    `n_mapping_steps`, `n_crf_steps`, `n_detect_loops` and `n_verify_loops`
-    count the stage calls; `loop_log` lists the closed loops. Set
-    `seq_phases` to a dict and `track_sequence` adds the host seconds of
-    its phases to it (frontend, lk, steps, crf, chunk_fetch, host_misc,
-    reloc_host, loop_host); the device runs behind the host, and the fetch
-    absorbs what it still has to do. `mesh` (axis "frames") splits a
+    the stages on the host clock, nested under each entry call's root
+    span (PER_FRAME_SPANS; the chunked path's `chunk.<phase>` spans, where
+    the device runs behind the host and the fetch absorbs what it still
+    has to do); on the card that is the dispatch, not the device work
+    (`utils/profiling.py`). It lives as long as the system: `reset` keeps
+    it, and its `global_ba_slice` span counts the global-BA slices.
+    Keyframe times are float64: the reference's float32 is 128 s apart at
+    Unix times near 1.3e9. `n_mapping_steps`, `n_crf_steps`,
+    `n_detect_loops` and `n_verify_loops` count the stage calls;
+    `loop_log` lists the closed loops. `mesh` (axis "frames") splits a
     chunk's front-end and forward flow over its devices; everything else
     runs on `device`.
     """
@@ -213,7 +254,6 @@ class SLAMSystem:
         self.enable_mapping = enable_mapping
         self.enable_crf = self.cfg.crf.enabled if enable_crf is None else enable_crf
         self.enable_loop = self.cfg.loop.enabled
-        self.seq_phases: Optional[dict] = None
         self.device = torch.device(device)
         if mesh is not None and mesh.axis != "frames":
             raise ValueError(f"SLAMSystem shards a chunk's frames: the mesh's axis "
@@ -265,7 +305,6 @@ class SLAMSystem:
         # global BA budget left after a loop closure: {"left": LM iterations,
         # "kf": the closing keyframe}
         self._gba_pending: Optional[dict] = None
-        self._gba_slices_run = 0
         # the monocular reference frame the next frame initialises against
         self._mono_ref: Optional[tuple] = None
 
@@ -283,6 +322,7 @@ class SLAMSystem:
         self.__dict__.pop("_chunk_cfgs", None)
 
     # ------------------------------------------------------------------ api
+    @_entry
     def track_rgbd(self, gray, depth, timestamp: float) -> torch.Tensor:
         """Process one RGB-D frame ((H, W) grayscale 0-255 and depth in
         metres, numpy or tensor); returns Tcw (4, 4) on the device."""
@@ -292,13 +332,15 @@ class SLAMSystem:
             frame = build_frame(self.cam, self.cfg, gray, depth)
         return self._track_frame(frame, timestamp, gray)
 
+    @_entry
     def track_stereo(self, gray_left, gray_right, timestamp: float) -> torch.Tensor:
         """System::TrackStereo: a rectified pair ((H, W) each) in, Tcw out.
         Both eyes' features come from one batched front-end, the left ones
         gain depth by row matching, then the RGB-D pipeline applies."""
         self._set_sensor("stereo")
         gray_left, gray_right = self._upload(gray_left), self._upload(gray_right)
-        frame = self._stereo_frames(gray_left[None], gray_right[None])[0]
+        with self.timer.stage("frontend"):
+            frame = self._stereo_frames(gray_left[None], gray_right[None])[0]
         return self._track_frame(frame, timestamp, gray_left)
 
     def _stereo_frames(self, grays_left: torch.Tensor,
@@ -315,16 +357,19 @@ class SLAMSystem:
             out.append(fl._replace(u_right=u_right, depth=depth))
         return out
 
+    @_entry
     def track_monocular(self, gray, timestamp: float) -> torch.Tensor:
         """System::TrackMonocular: one image in, Tcw out (the identity until
         the two-view initialisation succeeds; up to scale after)."""
         self._set_sensor("monocular")
         gray = self._upload(gray)
-        frame = build_frame(self.cam, self.cfg, gray, None)     # no depth, no uR
+        with self.timer.stage("frontend"):
+            frame = build_frame(self.cam, self.cfg, gray, None)     # no depth, no uR
         if not self.initialized:
             return self._try_mono_init(frame, timestamp, gray)
         return self._track_frame(frame, timestamp, gray)
 
+    @_entry
     def track_observations(self, uv, depth, desc, timestamp: float) -> torch.Tensor:
         """Pipeline-test entry: track a frame given its observations
         (keypoints, depth, descriptors) instead of an image."""
@@ -333,6 +378,7 @@ class SLAMSystem:
                                         self.cam, self.device)
         return self._track_frame(frame, timestamp)
 
+    @_entry
     def track_observations_mono(self, uv, desc, timestamp: float) -> torch.Tensor:
         """Observation-level monocular entry: `track_monocular` without the
         image front-end (two-view initialisation, triangulation-only
@@ -355,7 +401,7 @@ class SLAMSystem:
         eye = torch.eye(4, device=dev)
         self._n_frames += 1
         if self._mono_ref is None:
-            if int(frame.valid.sum()) > 100:
+            if int(self._readback(frame.valid.sum())) > 100:
                 self._mono_ref = (frame, timestamp)
             self.trajectory.append((timestamp, np.eye(4, dtype=np.float32), -1))
             self.stats.append({"t": timestamp, "event": "mono_wait"})
@@ -368,8 +414,8 @@ class SLAMSystem:
         res = initialize_mono(cam, ref.uv, frame.uv[mm.idx], mm.valid,
                               self._mono_sampler())
         # the verdict and the match count in one read
-        accepted, n_matches = torch.stack(
-            [res.accepted.to(torch.int64), mm.valid.sum()]).tolist()
+        accepted, n_matches = self._readback(torch.stack(
+            [res.accepted.to(torch.int64), mm.valid.sum()])).tolist()
         if not accepted:
             if n_matches < 100:
                 self._mono_ref = (frame, timestamp)
@@ -412,17 +458,24 @@ class SLAMSystem:
         # the initialising frame is keyframe 1: identity relative pose
         self.trajectory.append((timestamp, np.eye(4, dtype=np.float32), kf1))
         self.stats.append({"t": timestamp, "event": "mono_init",
-                           "n_points": int(self.map.n_points)})
+                           "n_points": int(self._readback(self.map.n_points))})
         self._last_gray = gray
         return res.Tcw2
 
     def _upload(self, img, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Host array -> contiguous `dtype` on the device; from pinned
         memory and asynchronous, so the upload does not stall the host."""
-        t = torch.as_tensor(img, dtype=dtype).contiguous()
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        with self.timer.stage("upload"):
+            t = torch.as_tensor(img, dtype=dtype).contiguous()
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
+
+    def _readback(self, t: torch.Tensor) -> np.ndarray:
+        """`t` on the host: a device->host read of an entry's path, where
+        the host waits for the device, as a `readback` span."""
+        with self.timer.stage("readback"):
+            return t.cpu().numpy()
 
     def _sampler(self):
         """Consensus draws for this frame, from a generator seeded by the
@@ -460,7 +513,8 @@ class SLAMSystem:
         prev_uv, prev_obs, prev_valid = self.ts.last_uv, self.ts.last_obs, self.ts.last_valid
         dev_stats = None
         if not self.initialized:
-            self.map, self.ts = initialize_map(cfg, cam, self.map, frame, t_dev)
+            with self.timer.stage("initialize_map"):
+                self.map, self.ts = initialize_map(cfg, cam, self.map, frame, t_dev)
             self.initialized = True
             info_host = {"event": "init"}
         else:
@@ -468,14 +522,16 @@ class SLAMSystem:
                 self.ts, self.map, info = track_step(
                     cfg, cam, self.map, self.ts, frame, self._sampler())
             # the one device->host read of the frame: the control scalars
-            need_kf, status, n_kfs = torch.stack(
+            need_kf, status, n_kfs = self._readback(torch.stack(
                 [info.need_kf.to(torch.int32), self.ts.status,
-                 self.map.n_kfs]).tolist()
+                 self.map.n_kfs])).tolist()
             need_kf = need_kf and not self._localization_only
             if status == 2 and n_kfs >= 2:
                 # Tracking::Relocalization (a rare path: it reads the device)
-                rr = relocalize(cfg, cam, self.map, frame, self._reloc_sampler())
-                if bool(rr.accepted):
+                with self.timer.stage("relocalize"):
+                    rr = relocalize(cfg, cam, self.map, frame, self._reloc_sampler())
+                    accepted = bool(self._readback(rr.accepted))
+                if accepted:
                     self.ts = self.ts._replace(
                         Tcw=rr.Tcw, vel=torch.eye(4, device=self.device),
                         status=torch.ones((), dtype=torch.int32, device=self.device))
@@ -484,9 +540,10 @@ class SLAMSystem:
                 flow_dyn = None
                 if (self.enable_crf and gray is not None and prev_gray is not None
                         and self._last_Tcw is not None and cfg.crf.spawn_flow_gate > 0):
-                    flow_dyn = spawn_flow_dyn(cfg, cam, gray, prev_gray, frame.uv,
-                                              frame.depth, frame.valid, self.ts.Tcw,
-                                              self._last_Tcw)
+                    with self.timer.stage("spawn_flow_dyn"):
+                        flow_dyn = spawn_flow_dyn(cfg, cam, gray, prev_gray, frame.uv,
+                                                  frame.depth, frame.valid, self.ts.Tcw,
+                                                  self._last_Tcw)
                 with self.timer.stage("insert_kf"):
                     self.map, self.ts = insert_keyframe(
                         cfg, cam, self.map, self.ts, frame, info.obs, t_dev,
@@ -498,16 +555,19 @@ class SLAMSystem:
                 self.kf_log.append((timestamp, self.ts.ref_kf))
                 self._warn_if_at_capacity()
                 if self.enable_loop:
-                    self._try_close_loop()
+                    with self.timer.stage("loop"):
+                        self._try_close_loop()
             # a pending global BA advances one budgeted slice per frame
             self._pump_gba()
             zero = torch.zeros((), dtype=torch.int64, device=self.device)
             crf_dyn = crf_tracks = zero
             if self.enable_crf:
                 if gray is not None and prev_gray is not None:
-                    self.map = flow_evidence(cfg, cam, self.map, prev_gray, gray,
-                                             prev_uv, prev_obs, prev_valid, self.ts.Tcw)
-                self.map, crf_info = crf_step(cfg, self.map, self.ts.frame_idx)
+                    with self.timer.stage("flow_evidence"):
+                        self.map = flow_evidence(cfg, cam, self.map, prev_gray, gray,
+                                                 prev_uv, prev_obs, prev_valid, self.ts.Tcw)
+                with self.timer.stage("crf_step"):
+                    self.map, crf_info = crf_step(cfg, self.map, self.ts.frame_idx)
                 self.n_crf_steps += 1
                 crf_dyn, crf_tracks = crf_info.n_dynamic, crf_info.n_tracks
             dev_stats = torch.stack([
@@ -532,6 +592,7 @@ class SLAMSystem:
         return Tcw
 
     # ------------------------------------------------------ throughput mode
+    @_entry
     def track_sequence_stereo(self, grays_left, grays_right, timestamps,
                               chunk: int = 8) -> np.ndarray:
         """Throughput mode for stereo input ((N, H, W) left and right
@@ -565,6 +626,7 @@ class SLAMSystem:
                                           cfg.tracking.interrupt_min_kf_gap)))
         return cfg_track, cfg_map
 
+    @_entry
     def track_sequence(self, grays, depths, timestamps, chunk: int = 8,
                        stereo: bool = False) -> np.ndarray:
         """Throughput mode: track N frames ((N, H, W) grayscale and depth,
@@ -592,14 +654,21 @@ class SLAMSystem:
     def _track_chunk(self, g: torch.Tensor, d: torch.Tensor, timestamps: np.ndarray,
                      stereo: bool = False) -> np.ndarray:
         """One chunk of `track_sequence`: (take, 4, 4) poses Tcw. With
-        `stereo`, d holds the right eyes and no depth image exists."""
+        `stereo`, d holds the right eyes and no depth image exists. Its
+        phases are contiguous `chunk.<phase>` spans (CHUNK_PHASES)."""
+        with Sections(self.timer) as phase:
+            return self._chunk_phases(g, d, timestamps, stereo, phase)
+
+    def _chunk_phases(self, g: torch.Tensor, d: torch.Tensor, timestamps: np.ndarray,
+                      stereo: bool, phase: Sections) -> np.ndarray:
+        """`_track_chunk`'s body, each phase opened by `phase`."""
         cfg, cfg_map = self._chunk_cfgs
         cam, dev = self.cam, self.device
         take = g.shape[0]
-        clock = _PhaseClock(self.seq_phases)
 
+        phase("chunk.frontend")
         frames = self._chunk_frames(g, d, stereo)
-        clock.lap("frontend")
+        phase("chunk.lk")
         prev_grays = [self._last_gray if self._last_gray is not None else g[0],
                       *g[:-1]]
         if self.enable_crf:
@@ -607,7 +676,7 @@ class SLAMSystem:
             # on the poses: the whole chunk's runs ahead of the loop
             prev_uvs = [self.ts.last_uv, *(f.uv for f in frames[:-1])]
             flow = self._chunk_flow(prev_grays, g, prev_uvs)
-        clock.lap("lk")
+        phase("chunk.steps")
         t_dev = self._upload(timestamps, torch.float64)
         spawn_gate = self.enable_crf and cfg.crf.spawn_flow_gate > 0
 
@@ -620,7 +689,7 @@ class SLAMSystem:
             ts, m, info = track_step(cfg, cam, self.map, self.ts, fr, self._sampler())
             # the frame's one device->host read: the reference branches on
             # the device (lax.cond), eager PyTorch on the host
-            kf_here = bool(info.need_kf) and not self._localization_only
+            kf_here = bool(self._readback(info.need_kf)) and not self._localization_only
             if kf_here:
                 flow_dyn = None
                 if spawn_gate:
@@ -632,7 +701,8 @@ class SLAMSystem:
                     m = mapping_step(cfg_map, cam, m, ts.ref_kf)
                     self.n_mapping_steps += 1
                 if self.enable_loop:
-                    loops.append(detect_loop(cfg, m, ts.ref_kf))
+                    with self.timer.stage("detect_loop"):
+                        loops.append(detect_loop(cfg, m, ts.ref_kf))
                     self.n_detect_loops += 1
             if self.enable_crf:
                 m = flow_ema(cfg, cam, m, flow.uv_next[k], flow.ok[k], prev_obs,
@@ -645,14 +715,14 @@ class SLAMSystem:
             Tcr_seq.append(ts.Tcw @ se3_inverse(take_row(m.kf_Tcw, ts.ref_kf)))
             ref_seq.append(ts.ref_kf)
             status_seq.append(ts.status)
-        clock.lap("steps")
+        phase("chunk.crf")
         if self.enable_crf:
             self.map, _ = crf_step(cfg, self.map, self.ts.frame_idx)
             self.n_crf_steps += 1
         self._last_gray = g[take - 1]
         self._last_Tcw = self.ts.Tcw
-        clock.lap("crf")
 
+        phase("chunk.chunk_fetch")
         # ONE packed device->host transfer per chunk (float32 holds every
         # index and flag exactly)
         f32 = torch.float32
@@ -663,8 +733,8 @@ class SLAMSystem:
             parts += [torch.stack([lc.valid for lc in loops]).to(f32),
                       torch.stack([lc.cands for lc in loops]).to(f32).reshape(-1),
                       torch.stack([lc.groups for lc in loops]).to(f32).reshape(-1)]
-        host = torch.cat(parts).cpu().numpy()
-        clock.lap("chunk_fetch")
+        host = self._readback(torch.cat(parts))
+        phase("chunk.host_misc")
         cut = np.cumsum([16 * take, 16 * take, take, take, 1])
         Tcw_np = host[:cut[0]].reshape(take, 4, 4)
         Tcr_np = host[cut[0]:cut[1]].reshape(take, 4, 4)
@@ -675,7 +745,7 @@ class SLAMSystem:
             self.trajectory.append((float(timestamps[k]), Tcr_np[k], int(refkf[k])))
             if kf_flags[k]:
                 self.kf_log.append((float(timestamps[k]), int(refkf[k])))
-        clock.lap("host_misc")
+        phase("chunk.reloc_host")
         n_lost = int((statuses == 2).sum())
         if n_lost:
             self.stats.append({"event": "chunk_lost", "t": float(timestamps[-1]),
@@ -686,14 +756,16 @@ class SLAMSystem:
         if persist_lost and n_kfs >= 2:
             fr = (self._stereo_frames(g[take - 1:], d[take - 1:])[0] if stereo
                   else build_frame(cam, self.cfg, g[take - 1], d[take - 1]))
-            rr = relocalize(self.cfg, cam, self.map, fr, self._reloc_sampler())
-            if bool(rr.accepted):
+            with self.timer.stage("relocalize"):
+                rr = relocalize(self.cfg, cam, self.map, fr, self._reloc_sampler())
+                accepted = bool(self._readback(rr.accepted))
+            if accepted:
                 self.ts = self.ts._replace(
                     Tcw=rr.Tcw, vel=torch.eye(4, device=dev),
                     status=torch.ones((), dtype=torch.int32, device=dev))
                 self.stats.append({"event": "chunk_reloc", "t": float(timestamps[-1]),
-                                   "inliers": int(rr.n_inliers)})
-        clock.lap("reloc_host")
+                                   "inliers": int(self._readback(rr.n_inliers))})
+        phase("chunk.loop_host")
         if loops:
             n, topk = len(loops), cfg.loop.retrieval_topk
             lc_valid = host[cut[4]:cut[4] + n] > 0
@@ -703,12 +775,12 @@ class SLAMSystem:
             # a keyframe with no detection still goes through: it clears
             # the consistency streak
             for i, k in enumerate(kf_steps):
-                self._try_close_loop(pre=(
-                    int(refkf[k]), bool(lc_valid[i]), lc_cands.reshape(n, topk)[i],
-                    lc_groups.reshape(n, topk, -1)[i]))
+                with self.timer.stage("loop"):
+                    self._try_close_loop(pre=(
+                        int(refkf[k]), bool(lc_valid[i]), lc_cands.reshape(n, topk)[i],
+                        lc_groups.reshape(n, topk, -1)[i]))
         # a pending global BA advances one budgeted slice per chunk
         self._pump_gba()
-        clock.lap("loop_host")
         return Tcw_np
 
     def _shards(self, take: int) -> List[tuple]:
@@ -766,12 +838,13 @@ class SLAMSystem:
         if pre is not None:
             kf, valid, cands, groups = pre
         else:
-            lc = detect_loop(self.cfg, self.map, self.ts.ref_kf)
+            with self.timer.stage("detect_loop"):
+                lc = detect_loop(self.cfg, self.map, self.ts.ref_kf)
             self.n_detect_loops += 1
-            host = torch.cat([
+            host = self._readback(torch.cat([
                 self.ts.ref_kf.reshape(1).to(torch.int32),
                 lc.valid.reshape(1).to(torch.int32), lc.cands,
-                lc.groups.reshape(-1).to(torch.int32)]).cpu().numpy()
+                lc.groups.reshape(-1).to(torch.int32)]))
             topk = lc.cands.shape[0]
             kf, valid, cands = int(host[0]), bool(host[1]), host[2:2 + topk]
             groups = host[2 + topk:].reshape(topk, -1) > 0
@@ -796,21 +869,24 @@ class SLAMSystem:
         kf_dev = torch.full((), kf, dtype=torch.int32, device=dev)
         for cand in ready[:3]:
             cand_dev = torch.full((), cand, dtype=torch.int32, device=dev)
-            ver = verify_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
-                              self._loop_sampler())
+            with self.timer.stage("verify_loop"):
+                ver = verify_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
+                                  self._loop_sampler())
+                accepted, inliers, s_corr = self._readback(torch.stack([
+                    ver.accepted.to(torch.float32), ver.n_inliers.to(torch.float32),
+                    ver.s_corr])).tolist()
             self.n_verify_loops += 1
-            accepted, inliers, s_corr = torch.stack([
-                ver.accepted.to(torch.float32), ver.n_inliers.to(torch.float32),
-                ver.s_corr]).tolist()
             if not accepted:
                 continue
             if self.cfg.loop.fix_scale:
-                self.map = correct_loop(self.cfg, self.cam, self.map, kf_dev, cand_dev,
-                                        ver.T_corr)
+                with self.timer.stage("correct_loop"):
+                    self.map = correct_loop(self.cfg, self.cam, self.map, kf_dev,
+                                            cand_dev, ver.T_corr)
             else:
                 # monocular: the Sim(3) essential graph absorbs scale drift
-                self.map = correct_loop_sim3(self.cfg, self.cam, self.map, kf_dev,
-                                             cand_dev, ver.T_corr, ver.s_corr)
+                with self.timer.stage("correct_loop_sim3"):
+                    self.map = correct_loop_sim3(self.cfg, self.cam, self.map, kf_dev,
+                                                 cand_dev, ver.T_corr, ver.s_corr)
             # the current pose moved with its keyframe
             self.ts = self.ts._replace(
                 Tcw=take_row(self.map.kf_Tcw, self.ts.ref_kf),
@@ -838,13 +914,13 @@ class SLAMSystem:
                 slice_iters = max(self.cfg.loop.gba_total_iters, 1)
             with self.timer.stage("global_ba_slice"):
                 self.map = global_ba(self.cfg, self.cam, self.map, slice_iters)
-            self._gba_slices_run += 1
             self._gba_pending["left"] -= slice_iters
             if self._gba_pending["left"] <= 0:
                 kf = torch.full((), self._gba_pending["kf"], dtype=torch.int32,
                                 device=self.device)
-                self.map = search_and_fuse(self.cfg, self.cam, self.map, kf,
-                                           self.cfg.mapping.fuse_neighbors)
+                with self.timer.stage("search_and_fuse"):
+                    self.map = search_and_fuse(self.cfg, self.cam, self.map, kf,
+                                               self.cfg.mapping.fuse_neighbors)
                 self._gba_pending = None
             if not drain:
                 break
@@ -872,9 +948,9 @@ class SLAMSystem:
             return
         # one host read: n_points is a high-water mark (slots are
         # recycled), so the live count decides
-        n_kf, n_pt, n_alive = torch.stack([
+        n_kf, n_pt, n_alive = self._readback(torch.stack([
             self.map.n_kfs, self.map.n_points,
-            torch.sum(self.map.p_alive, dtype=torch.int32)]).tolist()
+            torch.sum(self.map.p_alive, dtype=torch.int32)])).tolist()
         full_kf = n_kf >= self.cfg.map.max_keyframes
         full_pt = n_pt >= self.cfg.map.max_points and n_alive >= self.cfg.map.max_points
         if full_kf or full_pt:

@@ -30,6 +30,7 @@ from ..ops.match import (
     resolve_duplicates,
     rotation_consistency,
 )
+from ..utils.profiling import Sections, sections
 from .ba import consensus_weights, pose_consensus, pose_optimize
 from .capacities import LOCAL_POINTS
 from .crf import masked_median
@@ -165,16 +166,29 @@ def _select(cond, a, b):
     return type(a)(*[torch.where(cond, x, y) for x, y in zip(a, b)])
 
 
+# the spans of track_step's sections, in order (utils/profiling.Sections)
+SECTIONS = ("track.motion", "track.fallback", "track.local_map", "track.final",
+            "track.audit", "track.point_stats", "track.kf_decision")
+
+
 def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
                frame: Frame, sampler: Sampler
                ) -> Tuple[TrackState, MapState, TrackInfo]:
     """One tracking iteration: updated track state, map with updated
-    point statistics, and per-frame info."""
+    point statistics, and per-frame info. Inside a `SLAMSystem` entry its
+    seven sections are contiguous spans that cover its body (SECTIONS)."""
+    with sections() as section:
+        return _track_step(cfg, cam, m, ts, frame, sampler, section)
+
+
+def _track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
+                frame: Frame, sampler: Sampler, section: Sections
+                ) -> Tuple[TrackState, MapState, TrackInfo]:
+    # ---- 1. match against last frame (motion model) ------------------------
+    section("track.motion")
     mcfg = cfg.matcher
     dev = frame.uv.device
     T_pred = ts.vel @ ts.Tcw
-
-    # ---- 1. match against last frame (motion model) ------------------------
     Twc_last = se3_inverse(ts.Tcw)
     pw_last = torch.where(
         (ts.last_obs >= 0)[:, None],
@@ -216,6 +230,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
     T1 = r1.Tcw
 
     # ---- 1b. reference-keyframe fallback (both branches computed) ----------
+    section("track.fallback")
     mm_failed = (n_mm < 20) | (r1.n_inliers < 10)
     kf = ts.ref_kf
     obs_ref = take_row(m.kf_obs, kf)
@@ -240,6 +255,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
     pw_mm = torch.where(use_fb, m.p_xyz[_ids(obs_fb)], pw_mm)
 
     # ---- 2. track local map ------------------------------------------------
+    section("track.local_map")
     pc1 = m.p_xyz @ T1[:3, :3].T + T1[:3, 3]
     z1 = pc1[:, 2]
     uv1 = _project_uv(cam, pc1)
@@ -280,6 +296,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
     near_map = torch.any(near_gate & depth_compat & local_ok[None, :], dim=1) & frame.valid
 
     # ---- 3. final pose optimisation over the map associations --------------
+    section("track.final")
     obs = torch.where(
         mm_valid & (obs_mm >= 0), obs_mm,
         torch.where(lm_valid, local_ids[lm.idx].to(torch.int32), -1))
@@ -291,6 +308,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
                        assoc, cfg.pose_opt, cfg.orb.scale_factor)
 
     # ---- 3b. capture-resistance audit (both branches computed) -------------
+    section("track.audit")
     pcfg = cfg.pose_opt
     if pcfg.consensus_hypotheses > 0:
         pc_cam_q = torch.stack([
@@ -327,6 +345,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
     n_inliers = torch.sum((inlier & (obs >= 0)).to(torch.int32))
 
     # ---- 4. per-point statistics (CRF evidence) ----------------------------
+    section("track.point_stats")
     P = m.capacity_points
     pc2 = m.p_xyz @ T2[:3, :3].T + T2[:3, 3]
     z2 = pc2[:, 2]
@@ -372,6 +391,7 @@ def track_step(cfg: SLAMConfig, cam: Pinhole, m: MapState, ts: TrackState,
         m.p_err_ema, miss_ids, decay * err_miss_old + (1 - decay) * miss_tgt))
 
     # ---- 5. keyframe decision (RGB-D close-point rules) --------------------
+    section("track.kf_decision")
     is_close = (frame.depth > 0) & (frame.depth < _depth_threshold(cam, cfg))
     tracked_close = inlier & (obs >= 0) & is_close
     untracked_close = frame.valid & is_close & ~tracked_close

@@ -23,8 +23,8 @@ detection on, same world): the stages of a chunk (the batched front-end
 `build_frames`, the hoisted LK batch, `track_step`, the keyframe branch's
 spawn gate / insertion / `mapping_step` / `detect_loop`, the flow EMA,
 `crf_step`) under the same synchronisation, their aten ops, and the
-unsynchronised `seq_phases` split of a third run (step loop, fetch and
-host logic included).
+unsynchronised split of a third run by its `chunk.<phase>` spans (step
+loop, fetch and host logic included).
 
 `--loop` profiles the same chunked path over the loop world instead (a
 1.2-turn pan over a textured wall, 130 frames, as `chip_smoke.py`'s loop
@@ -239,8 +239,8 @@ def profile_closure(slam, s_corr: float = 0.8, calls: int = 2):
 def profile_sequence(slam_factory, grays, depths, stamps, chunk: int,
                      track: str = "track_sequence"):
     """({stage: (calls, ms per call, ms per chunked frame, ops per call)},
-    seq_phases in host ms per chunked frame, ms per chunked frame
-    unsynchronised) of `track_sequence` over the frames; a short run on a
+    the `chunk.<phase>` spans in host ms per chunked frame, ms per chunked
+    frame unsynchronised) of `track_sequence` over the frames; a short run on a
     system of its own warms the device up first."""
     sync = torch.cuda.synchronize
     getattr(slam_factory(), track)(grays[:4], depths[:4], stamps[:4], chunk=chunk)
@@ -277,13 +277,13 @@ def profile_sequence(slam_factory, grays, depths, stamps, chunk: int,
     rows["(all frames)"] = (1, 0.0, 0.0, ops["(frame)"] / (n + 1))
 
     slam = slam_factory()
-    slam.seq_phases = {}
     sync()
     t0 = time.perf_counter()
     getattr(slam, track)(grays, depths, stamps, chunk=chunk)
     sync()
     wall = (time.perf_counter() - t0) * 1e3 / (n + 1)
-    return rows, {k: v * 1e3 / n for k, v in slam.seq_phases.items()}, wall
+    phases = slam.timer.span_totals("chunk.")
+    return rows, {k: s * 1e3 / n for k, (_, s) in phases.items()}, wall
 
 
 def device_busy(slam_factory, frames, first: int = 10, n: int = 5, top: int = 10,
@@ -381,7 +381,7 @@ def main() -> int:
             "track_sequence_stereo" if args.stereo else "track_sequence")
         print(f"{torch.cuda.get_device_name(0)}, {track if args.stereo else 'track_sequence'} over {args.frames} "
               f"frames, chunk {args.chunk}: {wall:.2f} ms/frame unsynchronised")
-        print("seq_phases, host ms per chunked frame: "
+        print("chunk phases, host ms per chunked frame: "
               + ", ".join(f"{k} {v:.2f}" for k, v in phases.items()))
         print(header)
         for row, (c, per_call, per_frame, n_ops) in rows.items():
@@ -389,7 +389,7 @@ def main() -> int:
         if args.json:
             with open(args.json, "w") as fh:
                 json.dump({"device": torch.cuda.get_device_name(0), "rows": rows,
-                           "seq_phases_ms": phases, "ms_per_frame": wall}, fh, indent=1)
+                           "chunk_phases_ms": phases, "ms_per_frame": wall}, fh, indent=1)
         return 0
 
     kept: list = []

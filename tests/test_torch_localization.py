@@ -38,7 +38,8 @@ from lc_crf_slam_tpu.utils.synthetic import SyntheticWorld as RefWorld
 from lc_crf_slam_torch import convert
 from lc_crf_slam_torch.geometry.camera import TUM3
 from lc_crf_slam_torch.geometry.se3 import exp_se3
-from lc_crf_slam_torch.models.system import SLAMSystem
+from lc_crf_slam_torch.models.system import PER_FRAME_SPANS, SLAMSystem
+from lc_crf_slam_torch.models.tracking import SECTIONS as TRACK_SECTIONS
 from lc_crf_slam_torch.utils import checkpoint
 from lc_crf_slam_torch.utils.evaluate import evaluate_ate
 from lc_crf_slam_torch.utils.io_tum import read_trajectory_tum
@@ -150,7 +151,10 @@ def test_jsonl_log_and_timer(runs):
     """One JSONL line per record, as `json.dumps(record)`, with the
     reference's keys and control values (event, keyframe decision, status,
     keyframe count; match counts may part by float order); the timer's
-    stages are the reference's, with the same counts."""
+    stages are the reference's four, with the same counts, and the port's
+    documented spans of the per-frame path with the loop and the CRF off
+    (the entry's root, the upload, the read-backs, `track_step`'s sections
+    and the motion-only solver), each under its documented parent."""
     d, ref, port = runs["dir"], runs["ref"], runs["port"]
     lines = (d / "port.jsonl").read_text().splitlines()
     assert [json.loads(x) for x in lines] == port.stats
@@ -162,8 +166,13 @@ def test_jsonl_log_and_timer(runs):
         control = ("event", "need_kf", "status", "n_kfs")
         assert {k: a[k] for k in control if k in a} == {k: b[k] for k in control if k in b}
     got, want = port.timer.summary(), ref.timer.summary()
-    assert got.keys() == want.keys() == {"frontend", "track", "insert_kf", "mapping"}
-    assert {k: v["n"] for k, v in got.items()} == {k: v["n"] for k, v in want.items()}
+    stages = {"frontend", "track", "insert_kf", "mapping"}
+    assert want.keys() == stages
+    assert {k: got[k]["n"] for k in stages} == {k: v["n"] for k, v in want.items()}
+    assert got.keys() - stages == {"track_rgbd", "upload", "initialize_map", "readback",
+                                   *TRACK_SECTIONS, "pose_optimize", "pose_consensus"}
+    for name, parents in port.timer.parents.items():
+        assert set(parents) <= (PER_FRAME_SPANS.get(name) or {None}), (name, parents)
     assert "frontend" in port.timer.report()
 
 

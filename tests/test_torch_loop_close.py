@@ -11,6 +11,7 @@ verdict, inlier count and intermediate match masks, `T_corr` to 1e-3;
 the integer state exactly and poses and points to 1e-3 (64- and
 48-iteration float32 CG solves summed in another order)."""
 
+import copy
 import dataclasses
 import os
 
@@ -30,8 +31,8 @@ from lc_crf_slam_torch.geometry.camera import TUM3
 from lc_crf_slam_torch.models import loopclosing as lc
 from lc_crf_slam_torch.models.system import SLAMSystem
 
-from torch_parity import (assert_map_equal, drifted_loop_map, reference_horn_sampler,
-                          use_reference_draws, with_loop_twins)
+from torch_parity import (assert_map_equal, drifted_loop_map, gba_slices,
+                          reference_horn_sampler, use_reference_draws, with_loop_twins)
 
 CFG = SLAMConfig(loop=LoopConfig(min_kfs_since_last=5),
                  map=MapConfig(max_points=4096, max_keyframes=32, max_features=512))
@@ -282,12 +283,14 @@ def _clone_system(s, port: bool):
         new = SLAMSystem(TUM3, s.cfg, enable_mapping=False, enable_crf=False, device="cpu")
         use_reference_draws(new)
         new.n_verify_loops = s.n_verify_loops
+        new.timer = copy.deepcopy(s.timer)      # its global-BA slices
     else:
         new = RefSystem(REF_TUM3, s.cfg, enable_mapping=False, enable_crf=False)
         new._reloc_key = jax.random.PRNGKey(7)
+        new._gba_slices_run = s._gba_slices_run
     new.map, new.ts, new.initialized = s.map, s.ts, True
     new.loop_log = [dict(e) for e in s.loop_log]
-    new._last_loop_kf, new._gba_slices_run = s._last_loop_kf, s._gba_slices_run
+    new._last_loop_kf = s._last_loop_kf
     new._consistent_groups = list(s._consistent_groups)
     new._gba_pending = None if s._gba_pending is None else dict(s._gba_pending)
     return new
@@ -308,10 +311,10 @@ def test_pump_gba_slices_are_bounded_and_drain(loop_state, closed):
         if port._gba_pending is not None:
             assert left - port._gba_pending["left"] == CFG.loop.gba_slice_iters
     expect = -(-CFG.loop.gba_total_iters // CFG.loop.gba_slice_iters)
-    assert pumps == expect == port._gba_slices_run == ref._gba_slices_run
+    assert pumps == expect == gba_slices(port) == ref._gba_slices_run
     assert ref._gba_pending is None
     port._pump_gba()                       # nothing pending: nothing runs
-    assert port._gba_slices_run == expect
+    assert gba_slices(port) == expect
 
 
 @pytest.mark.parametrize("export", ["get_trajectory", "save_keyframe_trajectory_tum",
@@ -323,9 +326,10 @@ def test_trajectory_export_drains_pending_budget(closed, export, tmp_path):
     port.trajectory.append((0.0, torch.eye(4), torch.tensor(0)))
     args = (str(tmp_path / "kf.txt"),) if export.startswith("save") else ()
     getattr(port, export)(*args)
-    assert port._gba_pending is None and port._gba_slices_run == 1
+    assert port._gba_pending is None and gba_slices(port) == 1
+    # the timer, which counts the slices, lives as long as the system
     port.reset()
-    assert port._gba_pending is None and port.loop_log == [] and port._gba_slices_run == 0
+    assert port._gba_pending is None and port.loop_log == [] and gba_slices(port) == 1
 
 
 def test_sync_fallback_runs_whole_budget_inline(loop_state):
@@ -336,7 +340,8 @@ def test_sync_fallback_runs_whole_budget_inline(loop_state):
     for s in (ref, port):
         for _ in range(cfg.loop.consistency_needed):
             s._try_close_loop(pre=_pre(cfg, loop_state["kf"]))
-        assert s._gba_pending is None and s._gba_slices_run == 1
+        slices = gba_slices(s) if s is port else s._gba_slices_run
+        assert s._gba_pending is None and slices == 1
     assert port.loop_log == ref.loop_log and len(port.loop_log) == 1
     _maps_close(ref, port)
 
@@ -373,7 +378,7 @@ def test_try_close_loop_per_frame_closes_as_reference(loop_state):
         assert (a["kf"], a["cand"], a["s_corr"]) == (b["kf"], b["cand"], b["s_corr"])
         assert a["inliers"] == b["inliers"]
     np.testing.assert_allclose(np.asarray(ref.ts.Tcw), port.ts.Tcw.numpy(), atol=STATE_TOL)
-    assert port._gba_slices_run == ref._gba_slices_run == 1
+    assert gba_slices(port) == ref._gba_slices_run == 1
     assert port._gba_pending == ref._gba_pending
     _maps_close(ref, port)
 
@@ -452,7 +457,7 @@ def _same_loop_state(ref, port):
     assert port.loop_log == ref.loop_log
     assert port._gba_pending == ref._gba_pending
     assert port._last_loop_kf == ref._last_loop_kf
-    assert port._gba_slices_run == ref._gba_slices_run
+    assert gba_slices(port) == ref._gba_slices_run
     g_ref, g = (convert.consistent_groups_to_numpy(s._consistent_groups) for s in (ref, port))
     assert len(g_ref) == len(g)
     assert all(np.array_equal(a, b) and sa == sb for (a, sa), (b, sb) in zip(g_ref, g))
@@ -501,7 +506,7 @@ def test_second_closure_matches_reference(loop_state, closed, first_budget):
         ref._pump_gba()
         port._pump_gba()
         _maps_close(ref, port)
-    assert ref._gba_pending is None and port._gba_slices_run == ref._gba_slices_run
+    assert ref._gba_pending is None and gba_slices(port) == ref._gba_slices_run
 
 
 # ---- end to end ------------------------------------------------------------
@@ -531,7 +536,7 @@ def test_pan_loop_closes_as_reference_in_throughput_mode():
     port.flush_stats()
     events = lambda s: [(e["event"], e["t"], e.get("lost_frames")) for e in s.stats
                         if e.get("event", "").startswith("chunk_")]
-    slices = (ref._gba_slices_run, port._gba_slices_run)
+    slices = (ref._gba_slices_run, gba_slices(port))
     t_ref, tr = ref.get_trajectory()
     t_port, tp = port.get_trajectory()
     gt_t, gt = world.groundtruth()

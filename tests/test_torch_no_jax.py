@@ -127,7 +127,7 @@ assert closer._gba_pending is not None
 err = lambda mm: float(torch.linalg.norm(mm.kf_Tcw[13, :3, 3] - T_true[:3, 3]))
 assert err(closer.map) < 0.3 * err(m), (err(m), err(closer.map))
 closer.shutdown()
-assert closer._gba_pending is None and closer._gba_slices_run == 1
+assert closer._gba_pending is None and closer.timer.count("global_ba_slice") == 1
 # the same closure over Sim(3)
 mcfg = dataclasses.replace(lcfg, loop=LoopConfig(min_kfs_since_last=5, fix_scale=False))
 mono_closer = SLAMSystem(TUM3, mcfg, enable_mapping=False, enable_crf=False, device="cpu")

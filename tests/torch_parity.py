@@ -19,7 +19,7 @@ from lc_crf_slam_tpu.config import LoopConfig, MapConfig, SLAMConfig
 from lc_crf_slam_tpu.geometry.camera import Pinhole as RefPinhole
 from lc_crf_slam_tpu.models.system import SLAMSystem as RefSystem
 from lc_crf_slam_torch.geometry.camera import Pinhole
-from lc_crf_slam_torch.models.system import SLAMSystem
+from lc_crf_slam_torch.models.system import CHUNK_PHASES, SLAMSystem
 
 # 6 xdist workers share the machine
 torch.set_num_threads(2)
@@ -292,6 +292,11 @@ def with_loop_twins(m, kf_loop, T_true, T_drift):
 
 # ---- the reference's whole system state, into a port system ------------
 
+def gba_slices(port) -> int:
+    """The port's global-BA slices so far: its `global_ba_slice` spans."""
+    return port.timer.count("global_ba_slice")
+
+
 def load_reference_state(port, z, gray_prev) -> None:
     """Put the reference system's state after a frame (an npz of
     tests/ref_unfused_worker.py's `save_state`, read with `np.load`) into
@@ -314,7 +319,8 @@ def load_reference_state(port, z, gray_prev) -> None:
     port._last_loop_kf = int(z["last_loop_kf"])
     port._gba_pending = None if int(z["gba_left"]) < 0 else {
         "left": int(z["gba_left"]), "kf": int(z["gba_kf"])}
-    port._gba_slices_run = int(z["gba_slices_run"])
+    # the state's "gba_slices_run" stays unloaded: the port counts its own
+    # global-BA slices in its timer (`gba_slices`)
     use_reference_draws(port, z["reloc_key"])
 
 
@@ -339,7 +345,7 @@ def save_port_state(path, port) -> None:
     out["last_loop_kf"] = np.int64(port._last_loop_kf)
     pending = port._gba_pending or {"left": -1, "kf": -1}
     out["gba_left"], out["gba_kf"] = np.int64(pending["left"]), np.int64(pending["kf"])
-    out["gba_slices_run"] = np.int64(port._gba_slices_run)
+    out["gba_slices_run"] = np.int64(gba_slices(port))
     out["reloc_key"] = np.asarray(port._reference_keys["key"])
     np.savez_compressed(path, **out)
 
@@ -456,7 +462,6 @@ def run_sequences(world, ks, chunk, cam_ref=CAM_REF, cam=CAM, cfg=SEQ_CFG,
     ref = RefSystem(cam_ref, cfg, enable_mapping=True, enable_crf=True)
     port = SLAMSystem(cam, cfg, enable_mapping=True, enable_crf=True, device="cpu")
     use_reference_draws(port)
-    port.seq_phases = {}
     poses_ref = ref.track_sequence(grays, depths, ts, chunk=chunk, stereo=stereo)
     poses_port = port.track_sequence(grays, depths, ts, chunk=chunk, stereo=stereo)
     return ref, port, np.asarray(poses_ref), poses_port
@@ -490,6 +495,7 @@ def compare_sequences(ref, port, poses_ref, poses_port, n_frames, chunk,
     assert port.n_mapping_steps == len(port.kf_log)
     assert port.n_detect_loops == len(port.kf_log)
     assert port.n_crf_steps == n_chunks
-    assert set(port.seq_phases) == {"frontend", "lk", "steps", "crf", "chunk_fetch",
-                                    "host_misc", "reloc_host", "loop_host"}
+    assert tuple(port.timer.span_totals("chunk.")) == CHUNK_PHASES
+    assert {p for name in CHUNK_PHASES for p in port.timer.parents[name]} == {
+        "track_sequence"}
     assert ref._consistent_groups == [] and port._consistent_groups == []
