@@ -119,6 +119,9 @@ PER_FRAME_SPANS = {
     **{name: {"track"} for name in TRACK_SECTIONS},
     "pose_optimize": {"track.motion", "track.fallback", "track.final", "track.audit",
                       "relocalize", "verify_loop"},
+    # on a card: the solve's CUDA graph, captured once a key and replayed
+    "pose_optimize.capture": {"pose_optimize"},
+    "pose_optimize.replay": {"pose_optimize"},
     "pose_consensus": {"track.audit"},
     "relocalize": {_ENTRY},
     "spawn_flow_dyn": {_ENTRY},

@@ -9,8 +9,8 @@ keyframe, so that the consistency streak sends it to verification. Every
 span lands under its documented parent; `track_step`'s sections cover its
 body; the counts agree with the program's own counters. Outside a system
 `track_step` records nothing; the timer opens a profiler annotation only
-under an active profiler. The benchmark's four readers of these spans,
-on a hand-built record."""
+under an active profiler. The benchmark's readers of these spans, on a
+hand-built record."""
 
 import contextlib
 import importlib.util
@@ -126,6 +126,18 @@ def test_counts_match_the_programs_counters(run):
     assert counts["upload"] == 2 * counts["track_rgbd"] == 6
 
 
+def test_graph_spans_under_pose_optimize_and_none_on_the_cpu(run):
+    """On a card each `pose_optimize` call replays its solve's CUDA graph
+    (`pose_optimize.replay`), captured at a key's first call
+    (`pose_optimize.capture`: tests/test_torch_pose_graph.py); on the CPU
+    the solve runs op by op and opens neither."""
+    graph_spans = {"pose_optimize.capture", "pose_optimize.replay"}
+    assert all(PER_FRAME_SPANS[name] == {"pose_optimize"} for name in graph_spans)
+    timer = run["slam"].timer
+    assert timer.count("pose_optimize") >= 8
+    assert not graph_spans & set(timer.samples)
+
+
 def test_track_step_outside_a_system_records_nothing(run):
     slam = run["slam"]
     before = _counts(slam.timer)
@@ -209,5 +221,8 @@ def test_span_readers():
                       if k not in ("spawn_flow_dyn", "flow_evidence", "crf_step")}, 10)
     assert _reader("crf_ms")(static) is None
     bare = _Record({"track": (10, 9.0), "insert_kf": (2, 0.5)}, 10)
-    for name in ("pose_opt_ms", "crf_ms", "loop_ms", "readback_ms"):
+    for name in ("pose_opt_ms", "crf_ms", "loop_ms", "readback_ms", "pose_graph.replay_share"):
         assert _reader(name)(bare) is None
+    # on a card the graph's spans run inside `pose_optimize`'s: not counted twice
+    graphed = _Record({**spans, "pose_optimize.replay": (40, 0.02)}, 10)
+    assert _reader("pose_opt_ms")(graphed) == pytest.approx(35.0)
