@@ -30,6 +30,8 @@ from ..ops.orb import (
 )
 from ..ops.pyramid import build_pyramid_batch, features_per_level, gaussian_blur
 from ..ops.select import select_from_cells
+from ..ops.stereo import stereo_match
+from ..utils.profiling import span
 
 
 class Frame(NamedTuple):
@@ -67,12 +69,20 @@ def orient_and_describe(cfg: SLAMConfig, img_l: torch.Tensor, uv_l: torch.Tensor
 
 
 def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,
-                 depth_imgs: Optional[torch.Tensor]) -> List[Frame]:
+                 depth_imgs: Optional[torch.Tensor],
+                 grays_right: Optional[torch.Tensor] = None) -> List[Frame]:
     """(B, H, W) float32 grayscale + (B, H, W) float32 depth [m] -> B
     Frames, each what `build_frame` makes of its image; `depth_imgs=None`
     for images without depth (stereo eyes, monocular). The pyramids, the
     FAST launch and the top-k over cells are batched; orientation and
-    descriptors run per frame and level."""
+    descriptors run per frame and level.
+
+    With `grays_right`, the (B, H, W) right eyes of rectified pairs
+    (`grays` the left ones, `depth_imgs` None), the B Frames are the
+    pairs' left eyes with their depth and uR from the row match, as
+    ORB-SLAM2's stereo Frame constructor makes them (`_stereo_frames`)."""
+    if grays_right is not None:
+        return _stereo_frames(cam, cfg, grays, grays_right)
     orb = cfg.orb
     pyr = build_pyramid_batch(grays, orb.n_levels, orb.scale_factor)
     quotas = features_per_level(orb.max_keypoints, orb.n_levels, orb.scale_factor)
@@ -116,6 +126,23 @@ def build_frames(cam: Pinhole, cfg: SLAMConfig, grays: torch.Tensor,
             valid=valid,
         ))
     return frames
+
+
+def _stereo_frames(cam: Pinhole, cfg: SLAMConfig, grays_left: torch.Tensor,
+                   grays_right: torch.Tensor) -> List[Frame]:
+    """Frame::ComputeStereoMatches of B pairs: all 2B images in one
+    extraction (span `frontend.extract`), then the row match of each pair
+    (span `stereo_match`)."""
+    B = grays_left.shape[0]
+    with span("frontend.extract"):
+        frames = build_frames(cam, cfg, torch.cat([grays_left, grays_right]), None)
+    out = []
+    with span("stereo_match"):
+        for fl, fr in zip(frames[:B], frames[B:]):
+            u_right, depth = stereo_match(cam, fl.uv, fl.level, fl.desc, fl.valid,
+                                          fr.uv, fr.level, fr.desc, fr.valid)
+            out.append(fl._replace(u_right=u_right, depth=depth))
+    return out
 
 
 def build_frame(cam: Pinhole, cfg: SLAMConfig, gray: torch.Tensor,

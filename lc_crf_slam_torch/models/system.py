@@ -56,8 +56,8 @@ read each at their first use in a process.
 Every entry call is a root span of `self.timer` named after the entry
 (`utils/profiling.py`), and installs the timer for the free functions'
 spans (`track_step`'s sections, `pose_optimize`, `pose_consensus`) for its
-length. The per-frame RGB-D path's spans and their parents are
-PER_FRAME_SPANS; every device->host read of an entry's path is a
+length. The per-frame RGB-D and stereo paths' spans and their parents
+are PER_FRAME_SPANS; every device->host read of an entry's path is a
 `readback` span. The chunked path's phases are `chunk.<phase>` spans
 (CHUNK_PHASES) under the `track_sequence` root.
 """
@@ -82,7 +82,6 @@ from ..ops.lk_flow import FlowResult, lk_track, lk_track_batch
 from ..ops.match import hamming_matrix, match_nn, projection_gate
 from ..ops.pnp import uniform_sampler
 from ..ops.ransac import multinomial_sampler
-from ..ops.stereo import stereo_match
 from ..parallel.mesh import Mesh
 from ..utils.io_tum import write_trajectory_tum
 from ..utils.profiling import Sections, StageTimer, installed
@@ -109,13 +108,17 @@ _RELOC_SEED = 7    # ... and its relocalisation draws with PRNGKey(7)
 _LOOP_SEED = 11    # the port's own stream for the loop verification's draws
 _MONO_SEED = 19    # ... and for the two-view initialisation's
 
-_ENTRY = "track_rgbd"
-# the spans of the per-frame RGB-D path: {span: the spans it runs in}
+_ENTRIES = frozenset({"track_rgbd", "track_stereo"})
+# the spans of the per-frame RGB-D and stereo paths: {span: the spans it runs in}
 PER_FRAME_SPANS = {
-    "upload": {_ENTRY},                 # _upload of the frame's arrays
-    "frontend": {_ENTRY},               # build_frame
-    "initialize_map": {_ENTRY},         # the map's first frame
-    "track": {_ENTRY},                  # track_step, by its sections:
+    "upload": _ENTRIES,                 # _upload of the frame's arrays
+    "frontend": _ENTRIES,               # build_frame, or a pair's _stereo_frames
+    # a stereo pair (track_stereo; the chunk path's batch, its boundary's
+    # relocalisation): both eyes' front end, then the row matches
+    "frontend.extract": {"frontend", "chunk.frontend", "chunk.reloc_host"},
+    "stereo_match": {"frontend", "chunk.frontend", "chunk.reloc_host"},
+    "initialize_map": _ENTRIES,         # the map's first frame
+    "track": _ENTRIES,                  # track_step, by its sections:
     **{name: {"track"} for name in TRACK_SECTIONS},
     "pose_optimize": {"track.motion", "track.fallback", "track.final", "track.audit",
                       "relocalize", "verify_loop"},
@@ -123,22 +126,22 @@ PER_FRAME_SPANS = {
     "pose_optimize.capture": {"pose_optimize"},
     "pose_optimize.replay": {"pose_optimize"},
     "pose_consensus": {"track.audit"},
-    "relocalize": {_ENTRY},
-    "spawn_flow_dyn": {_ENTRY},
-    "insert_kf": {_ENTRY},
-    "mapping": {_ENTRY},
-    "loop": {_ENTRY},                   # _try_close_loop
+    "relocalize": _ENTRIES,
+    "spawn_flow_dyn": _ENTRIES,
+    "insert_kf": _ENTRIES,
+    "mapping": _ENTRIES,
+    "loop": _ENTRIES,                   # _try_close_loop
     "detect_loop": {"loop"},
     "verify_loop": {"loop"},
     "correct_loop": {"loop"},
     "correct_loop_sim3": {"loop"},
-    "global_ba_slice": {_ENTRY, "loop"},
-    "search_and_fuse": {_ENTRY, "loop"},
-    "flow_evidence": {_ENTRY},
-    "crf_step": {_ENTRY},
+    "global_ba_slice": _ENTRIES | {"loop"},
+    "search_and_fuse": _ENTRIES | {"loop"},
+    "flow_evidence": _ENTRIES,
+    "crf_step": _ENTRIES,
     # the frame's control scalars, the capacity check, the loop detection's
     # fetch, a verification's verdict, a relocalisation's
-    "readback": {_ENTRY, "relocalize", "loop", "verify_loop"},
+    "readback": _ENTRIES | {"relocalize", "loop", "verify_loop"},
 }
 # the chunked path's phases, in order, each a span under `track_sequence`
 CHUNK_PHASES = ("chunk.frontend", "chunk.lk", "chunk.steps", "chunk.crf",
@@ -349,16 +352,9 @@ class SLAMSystem:
     def _stereo_frames(self, grays_left: torch.Tensor,
                        grays_right: torch.Tensor) -> List[Frame]:
         """(B, H, W) left and right images -> B depth-carrying left Frames
-        (Frame::ComputeStereoMatches): all 2B images in one `build_frames`
-        call, then the row match of each pair."""
-        cam, B = self.cam, grays_left.shape[0]
-        frames = build_frames(cam, self.cfg, torch.cat([grays_left, grays_right]), None)
-        out = []
-        for fl, fr in zip(frames[:B], frames[B:]):
-            u_right, depth = stereo_match(cam, fl.uv, fl.level, fl.desc, fl.valid,
-                                          fr.uv, fr.level, fr.desc, fr.valid)
-            out.append(fl._replace(u_right=u_right, depth=depth))
-        return out
+        (Frame::ComputeStereoMatches): one `build_frames` call of the pairs,
+        all 2B images in one extraction, then the row match of each pair."""
+        return build_frames(self.cam, self.cfg, grays_left, None, grays_right)
 
     @_entry
     def track_monocular(self, gray, timestamp: float) -> torch.Tensor:

@@ -59,12 +59,12 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ..models import loopclosing, mapping, system
+from ..models import frame, loopclosing, mapping, system
 
 # (module, function, row name), outermost first
 STAGES = (
     (system, "build_frames", "build_frames (batch)"),
-    (system, "stereo_match", "stereo_match"),
+    (frame, "stereo_match", "stereo_match"),
     (system, "initialize_mono", "initialize_mono"),
     (system, "correct_loop_sim3", "correct_loop_sim3"),
     (loopclosing, "optimize_pose_graph_sim3", "correct_loop_sim3: pose graph"),

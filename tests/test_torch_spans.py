@@ -10,7 +10,8 @@ span lands under its documented parent; `track_step`'s sections cover its
 body; the counts agree with the program's own counters. Outside a system
 `track_step` records nothing; the timer opens a profiler annotation only
 under an active profiler. The benchmark's readers of these spans, on a
-hand-built record."""
+hand-built record. Three QVGA pairs through `track_stereo` open the
+stereo front end's two spans under `frontend`."""
 
 import contextlib
 import importlib.util
@@ -126,6 +127,44 @@ def test_counts_match_the_programs_counters(run):
     assert counts["upload"] == 2 * counts["track_rgbd"] == 6
 
 
+STEREO_SPANS = ("frontend.extract", "stereo_match")
+
+
+@pytest.fixture(scope="module")
+def stereo_run():
+    """Three QVGA pairs through `track_stereo` (the map's first frame,
+    then two tracked ones): the right eye is the left camera moved by the
+    baseline bf / fx along its x axis."""
+    world = SyntheticWorld(cam=QVGA, n_static=800, n_dynamic=0, n_frames=20, seed=5,
+                           trajectory="orbit")
+    shift = np.eye(4)
+    shift[0, 3] = QVGA.bf / QVGA.fx
+    slam = SLAMSystem(QVGA, CFG, device="cpu")
+    for k in range(3):
+        f = world.frame(k, render=True)
+        right = world.frame(k, render=True, T_wc=world.gt_pose_twc(k) @ shift).image
+        slam.track_stereo(f.image, right, f.timestamp)
+    return slam
+
+
+def test_stereo_spans_under_frontend_once_a_frame(run, stereo_run):
+    """`frontend.extract` (both eyes' `build_frames`) and `stereo_match`
+    (the row matches) run under `frontend`, once each a pair; every span
+    of the stereo run lands under its documented parent; the RGB-D run
+    opens neither."""
+    timer = stereo_run.timer
+    frames = timer.count("track_stereo")
+    assert frames == timer.count("frontend") == 3
+    for name in STEREO_SPANS:
+        assert dict(timer.parents[name]) == {"frontend": frames}, name
+    for name, parents in timer.parents.items():
+        assert set(parents) <= (PER_FRAME_SPANS.get(name) or {None}), (name, parents)
+    # the two spans cover the pair's front end
+    inner = sum(sum(timer.samples[name]) for name in STEREO_SPANS)
+    assert inner >= 0.9 * sum(timer.samples["frontend"])
+    assert not set(STEREO_SPANS) & set(run["slam"].timer.samples)
+
+
 def test_graph_spans_under_pose_optimize_and_none_on_the_cpu(run):
     """On a card each `pose_optimize` call replays its solve's CUDA graph
     (`pose_optimize.replay`), captured at a key's first call
@@ -226,3 +265,16 @@ def test_span_readers():
     # on a card the graph's spans run inside `pose_optimize`'s: not counted twice
     graphed = _Record({**spans, "pose_optimize.replay": (40, 0.02)}, 10)
     assert _reader("pose_opt_ms")(graphed) == pytest.approx(35.0)
+
+
+
+def test_stereo_span_readers():
+    spans = {"frontend": (10, 0.30), "frontend.extract": (10, 0.25),
+             "stereo_match": (10, 0.02), "track": (9, 0.5)}
+    run = _Record(spans, 10)
+    assert _reader("stereo_extract_ms")(run) == pytest.approx(25.0)
+    assert _reader("stereo_match_ms")(run) == pytest.approx(2.0)
+    # an RGB-D run, or a program without the stereo spans, reads nothing
+    rgbd = _Record({k: v for k, v in spans.items() if k not in STEREO_SPANS}, 10)
+    for name in ("stereo_extract_ms", "stereo_match_ms"):
+        assert _reader(name)(rgbd) is None

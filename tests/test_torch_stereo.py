@@ -8,7 +8,11 @@ Tolerances: `stereo_match` fed identical frames keeps the match mask and
 division). The port's own front-end flips a descriptor bit where a
 BRIEF sample difference sits at its threshold (tests/test_torch_frontend.py),
 so its stereo depths equal the reference's on >= 99% of the left features.
-`track_stereo`: poses to 1 mm / 1 mrad, keyframes and statuses equal."""
+`track_stereo`: poses to 1 mm / 1 mrad, keyframes and statuses equal.
+The same comparisons, with the same tolerances, at the EuRoC stereo rig
+cut to half its pixels (tests/euroc_rig.py: 376x240, ORB-SLAM2's EuRoC
+settings with 1200 features and a keypoint capacity of 1200, fx and bf
+halved) on its static orbit."""
 
 import numpy as np
 import pytest
@@ -25,8 +29,19 @@ from lc_crf_slam_torch import convert
 from lc_crf_slam_torch.models.system import SLAMSystem
 from lc_crf_slam_torch.ops.stereo import stereo_match
 
+import euroc_rig
+from lc_crf_slam_tpu.config import SLAMConfig as RefConfig
+from lc_crf_slam_tpu.geometry.camera import Pinhole as RefPinhole
+from lc_crf_slam_torch.geometry.camera import Pinhole
 from torch_parity import (CAM, CAM_REF, SEQ_CFG, SLICE_CFG, assert_poses_close,
                           render_pair, use_reference_draws)
+
+# the EuRoC rig at half its pixels with a small map; its tracking slice
+EUROC = euroc_rig.camera(0.5)
+EUROC_REF, EUROC_CAM = RefPinhole(**EUROC), Pinhole(**EUROC)
+EUROC_CFG = euroc_rig.slam_config(RefConfig(), **{"map.max_points": 4096})
+EUROC_SLICE_CFG = euroc_rig.slam_config(RefConfig(), **{"map.max_points": 4096,
+                                                        "loop.enabled": False})
 
 
 def stereo_world():
@@ -35,27 +50,45 @@ def stereo_world():
                     trajectory="line", pixel_noise=0.0, depth_noise=0.0)
 
 
-@pytest.fixture(scope="module")
-def ref_pairs():
-    """The reference's left and right Frames of world frames 0 and 6."""
-    world = stereo_world()
+def euroc_world():
+    """The EuRoC rig's static orbit (tests/euroc_rig.py) at half its
+    pixels, noise-free."""
+    w = euroc_rig.WORLD
+    return RefWorld(cam=EUROC_REF, n_frames=w["n_frames"], n_static=w["n_static"],
+                    n_dynamic=0, seed=w["seed"], trajectory=w["trajectory"],
+                    pixel_noise=0.0, depth_noise=0.0)
+
+
+def reference_pairs(world, cam_ref, cfg, ks):
+    """The reference's left and right Frames of world frames `ks`."""
     build = jax.jit(ref_build_frame, static_argnums=(0, 1))
     out = []
-    for k in (0, 6):
-        gl, gr = render_pair(world, k, CAM_REF)
+    for k in ks:
+        gl, gr = render_pair(world, k, cam_ref)
         zero = jnp.zeros_like(jnp.asarray(gl))
-        out.append((gl, gr, build(CAM_REF, SEQ_CFG, jnp.asarray(gl), zero),
-                    build(CAM_REF, SEQ_CFG, jnp.asarray(gr), zero)))
+        out.append((gl, gr, build(cam_ref, cfg, jnp.asarray(gl), zero),
+                    build(cam_ref, cfg, jnp.asarray(gr), zero)))
     return out
 
 
-@pytest.mark.parametrize("which", [0, 1])
-def test_stereo_match_matches_reference(ref_pairs, which):
-    _, _, fl, fr = ref_pairs[which]
-    ur_ref, d_ref = ref_stereo_match(CAM_REF, fl.uv, fl.level, fl.desc, fl.valid,
+@pytest.fixture(scope="module")
+def ref_pairs():
+    """The reference's left and right Frames of world frames 0 and 6."""
+    return reference_pairs(stereo_world(), CAM_REF, SEQ_CFG, (0, 6))
+
+
+@pytest.fixture(scope="module")
+def euroc_pairs():
+    """... and of the EuRoC rig's frames 0 and 17."""
+    return reference_pairs(euroc_world(), EUROC_REF, EUROC_CFG, (0, 17))
+
+
+def assert_stereo_match(pair, cam_ref, cam):
+    _, _, fl, fr = pair
+    ur_ref, d_ref = ref_stereo_match(cam_ref, fl.uv, fl.level, fl.desc, fl.valid,
                                      fr.uv, fr.level, fr.desc, fr.valid)
     pl, pr = convert.frame_to_torch(fl), convert.frame_to_torch(fr)
-    ur, d = stereo_match(CAM, pl.uv, pl.level, pl.desc, pl.valid,
+    ur, d = stereo_match(cam, pl.uv, pl.level, pl.desc, pl.valid,
                          pr.uv, pr.level, pr.desc, pr.valid)
     ur_ref, d_ref = np.asarray(ur_ref), np.asarray(d_ref)
     np.testing.assert_array_equal(ur_ref >= 0, ur.numpy() >= 0)
@@ -67,15 +100,26 @@ def test_stereo_match_matches_reference(ref_pairs, which):
     assert 1.0 < np.median(d_ref[matched]) < 6.0
 
 
-def test_stereo_frames_match_reference(ref_pairs):
-    """Both eyes of two pairs in one `build_frames` batch against the
+@pytest.mark.parametrize("which", [0, 1])
+def test_stereo_match_matches_reference(ref_pairs, which):
+    assert_stereo_match(ref_pairs[which], CAM_REF, CAM)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_stereo_match_matches_reference_at_the_euroc_rig(euroc_pairs, which):
+    assert euroc_pairs[which][2].uv.shape[0] == 1200
+    assert_stereo_match(euroc_pairs[which], EUROC_REF, EUROC_CAM)
+
+
+def assert_stereo_frames(pairs, cam_ref, cam, cfg):
+    """Both eyes of the pairs in one `build_frames` batch against the
     reference's `_make_stereo_frame` of each pair."""
-    ref = RefSystem(CAM_REF, SEQ_CFG)
-    port = SLAMSystem(CAM, SEQ_CFG, device="cpu")
-    lefts = torch.from_numpy(np.stack([p[0] for p in ref_pairs]))
-    rights = torch.from_numpy(np.stack([p[1] for p in ref_pairs]))
+    ref = RefSystem(cam_ref, cfg)
+    port = SLAMSystem(cam, cfg, device="cpu")
+    lefts = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    rights = torch.from_numpy(np.stack([p[1] for p in pairs]))
     frames = port._stereo_frames(lefts, rights)
-    for (gl, gr, _, _), out in zip(ref_pairs, frames):
+    for (gl, gr, _, _), out in zip(pairs, frames):
         exp = ref._make_stereo_frame(gl, gr)
         for f in ("uv", "level", "valid"):
             np.testing.assert_array_equal(np.asarray(getattr(exp, f)),
@@ -86,20 +130,29 @@ def test_stereo_frames_match_reference(ref_pairs):
         assert np.array_equal(np.asarray(exp.u_right)[same] >= 0, out.u_right.numpy()[same] >= 0)
 
 
-def test_track_stereo_matches_reference():
+def test_stereo_frames_match_reference(ref_pairs):
+    """Two QVGA pairs."""
+    assert_stereo_frames(ref_pairs, CAM_REF, CAM, SEQ_CFG)
+
+
+def test_stereo_frames_match_reference_at_the_euroc_rig(euroc_pairs):
+    """Two pairs of the EuRoC rig at half its pixels, each eye at a
+    capacity of 1200 keypoints."""
+    assert_stereo_frames(euroc_pairs, EUROC_REF, EUROC_CAM, EUROC_CFG)
+
+
+def assert_track_stereo(world, cam_ref, cam, cfg, fps):
     """8 stereo pairs per frame through both packages' `track_stereo` (the
     tracking slice: mapping, the CRF and loop closing run the RGB-D code
     after the stereo front-end and are held by their own tests), the port
     with its own front-end and the reference's draws."""
-    world = stereo_world()
-    ref = RefSystem(CAM_REF, SLICE_CFG, enable_mapping=False, enable_crf=False)
-    port = SLAMSystem(CAM, SLICE_CFG, enable_mapping=False, enable_crf=False,
-                      device="cpu")
+    ref = RefSystem(cam_ref, cfg, enable_mapping=False, enable_crf=False)
+    port = SLAMSystem(cam, cfg, enable_mapping=False, enable_crf=False, device="cpu")
     use_reference_draws(port)
     for k in range(8):
-        gl, gr = render_pair(world, k, CAM_REF)
-        ref.track_stereo(gl, gr, k / 30.0)
-        port.track_stereo(gl, gr, k / 30.0)
+        gl, gr = render_pair(world, k, cam_ref)
+        ref.track_stereo(gl, gr, k / fps)
+        port.track_stereo(gl, gr, k / fps)
     assert ref.cfg.sensor == port.cfg.sensor == "stereo"
     _, pr = ref.get_trajectory()
     _, pp = port.get_trajectory()
@@ -112,7 +165,17 @@ def test_track_stereo_matches_reference():
     assert [s.get("status") for s in port.stats][1:] == [1] * 7
     assert int(ref.map.n_points) == int(port.map.n_points)
     with pytest.raises(RuntimeError, match="sensor mode"):
-        port.track_rgbd(*render_pair(world, 6, CAM_REF), 6 / 30.0)
+        port.track_rgbd(*render_pair(world, 6, cam_ref), 6 / fps)
+
+
+def test_track_stereo_matches_reference():
+    assert_track_stereo(stereo_world(), CAM_REF, CAM, SLICE_CFG, 30.0)
+
+
+def test_track_stereo_matches_reference_at_the_euroc_rig():
+    """At the EuRoC rig's settings: 20 pairs a second, ThDepth 35, at
+    most 20 frames between keyframes, 1200 keypoints a frame."""
+    assert_track_stereo(euroc_world(), EUROC_REF, EUROC_CAM, EUROC_SLICE_CFG, euroc_rig.FPS)
 
 
 @pytest.mark.slow
