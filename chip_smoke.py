@@ -581,7 +581,7 @@ def reset_counts() -> None:
 def path_launches():
     """(fused, map, segment-sum) kernel launches since `reset_counts()`."""
     from lc_crf_slam_torch.ops import fast_kernel, segment_sum
-    return fast_kernel.cell_launches, fast_kernel.launches, segment_sum.launches
+    return fast_kernel.cell_launches, fast_kernel.launches, segment_sum.launches()
 
 
 def drive(slam, frames, counted, track=None, sites=None):
@@ -2034,7 +2034,11 @@ def counted_recycling():
     host read per call): {"reused": slots below the high-water mark handed
     out again, "condemned": keyframe references those reuses turned to -2,
     "left": references to a reused slot still in the table after the call
-    (a keyframe entry that would alias the new point)}."""
+    (a keyframe entry that would alias the new point)}. On a card the
+    counting of mapping's calls is captured into the mapping step's CUDA
+    graphs, and every replay adds: the block starts with no captured step
+    and puts back the ones from before it on exit, so no graph that counts
+    outlives it."""
     from lc_crf_slam_torch.models import mapping, mapstate, system, tracking
 
     counts = {k: torch.zeros((), dtype=torch.int64, device="cuda")
@@ -2046,7 +2050,7 @@ def counted_recycling():
         P = m.capacity_points
         reused = (ids >= 0) & (ids < m.n_points)
         hit = torch.zeros(P + 1, dtype=torch.bool, device=ids.device)
-        hit[torch.where(reused, ids, P).long()] = True
+        hit.index_fill_(0, torch.where(reused, ids, P).long(), True)   # no host tensor: capturable
         counts["reused"] += torch.sum(reused)
         counts["condemned"] += torch.sum((m.kf_obs >= 0) & (out.kf_obs == -2))
         counts["left"] += torch.sum(
@@ -2054,6 +2058,7 @@ def counted_recycling():
         return out, ids
 
     modules = (mapping, system, tracking)
+    graphs, mapping._GRAPHS = mapping._GRAPHS, {}
     for mod in modules:
         mod.add_points = counted
     try:
@@ -2061,6 +2066,7 @@ def counted_recycling():
     finally:
         for mod in modules:
             mod.add_points = original
+        mapping._GRAPHS = graphs
 
 
 def dead_slot_refs(m) -> int:

@@ -77,7 +77,14 @@
 // not bytes.
 //
 // The plan's epoch advances on the host at every launch of `tile_kernel`,
-// so such a launch cannot be captured into a CUDA graph and replayed.
+// so a launch captured into a CUDA graph keeps the epoch it was recorded
+// with: it replays right only where its plan is made, and the scratch
+// zeroed, inside the same capture (local BA's plans are: every replay of
+// the mapping step starts epochs 1..N again on zeroed scratch).
+//
+// Each launch counts itself on the device (`g_launches`, read and reset by
+// `segment_sum_launches`), so a launch replayed from a CUDA graph counts
+// as one made from the host.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,6 +123,9 @@ constexpr int kCarryWords = 2 * kMaxCols;   // a double takes two tagged words
 constexpr int kLookback = 4 * kThreads;     // status words read per scan
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kPass = 1, kCarry = 2, kZeroStart = 3;   // status states
+// Launches that ran on this device since the last reset: thread 0 of
+// block 0 of each launch adds one.
+__device__ unsigned long long g_launches;
 // Polls of a word another block has yet to write before the kernel traps
 // (seconds): a fault in the plan ends the launch with an error, never a hang.
 constexpr int kMaxPolls = 1 << 23;
@@ -349,6 +359,7 @@ owned_kernel(SegmentSumPlan P, const T* __restrict__ vals, T* __restrict__ out, 
   __shared__ OwnedShared sh;
   __shared__ T s_carry[kMaxCols];
   const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
   if (b >= P.owned) {
     zero_slab<T>(P, out, k, static_cast<int64_t>(b) - P.owned, sh.hit);
     return;
@@ -481,6 +492,7 @@ tile_kernel(SegmentSumPlan P, const T* __restrict__ vals, T* __restrict__ out, i
   extern __shared__ __align__(128) unsigned char rows_raw[];
   __shared__ TileShared sh;
   const int tile = blockIdx.x;
+  if (tile == 0 && threadIdx.x == 0) atomicAdd(&g_launches, 1ull);
   if (tile >= P.tiles) {
     zero_slab<T>(P, out, k, static_cast<int64_t>(tile) - P.tiles, sh.hit);
     return;
@@ -674,6 +686,23 @@ extern "C" int segment_sum_f32(SegmentSumPlan* plan, const void* vals, void* out
 extern "C" int segment_sum_f64(SegmentSumPlan* plan, const void* vals, void* out, int k,
                                void* stream) {
   return launch<double>(plan, vals, out, k, stream);
+}
+
+// The launches that ran on `device` since the last reset, into *count,
+// after all of the device's work so far; reset != 0 zeroes the count.
+// Returns the CUDA error (0 on success).
+extern "C" int segment_sum_launches(int device, unsigned long long* count, int reset) {
+  int cur = 0;
+  cudaGetDevice(&cur);
+  if (cur != device) cudaSetDevice(device);
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(count, g_launches, sizeof(*count));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_launches, &zero, sizeof(zero));
+  }
+  if (cur != device) cudaSetDevice(cur);
+  return static_cast<int>(err);
 }
 
 // The constants the wrapper's plan must agree with.

@@ -31,7 +31,8 @@ from ..config import PoseOptConfig
 from ..geometry.align import umeyama_alignment
 from ..geometry.camera import Pinhole
 from ..geometry.se3 import exp_se3, hat_so3, make_se3
-from ..utils.profiling import span, spanned
+from ..utils.cuda_graph import replay
+from ..utils.profiling import spanned
 
 
 class PoseOptResult(NamedTuple):
@@ -84,16 +85,7 @@ def _solve6(H, g):
     return -torch.linalg.solve_ex(H, g[..., None])[0][..., 0]
 
 
-class _Captured(NamedTuple):
-    """One solve captured as a CUDA graph: the static inputs it reads (in
-    `pose_optimize`'s argument order), the graph, the outputs it writes."""
-
-    inputs: tuple
-    graph: object            # torch.cuda.CUDAGraph
-    out: PoseOptResult
-
-
-# captured solves by `_graph_key`
+# captured solves by `_graph_key` (and the float settings, `utils/cuda_graph.replay`)
 _GRAPHS: dict = {}
 
 
@@ -103,36 +95,6 @@ def _graph_key(cam: Pinhole, args: tuple, cfg: PoseOptConfig, scale_factor: floa
     and device."""
     return (cam, cfg, float(scale_factor),
             tuple((tuple(a.shape), a.dtype, a.device) for a in args))
-
-
-def _capture(cam: Pinhole, args: tuple, cfg: PoseOptConfig,
-             scale_factor: float) -> _Captured:
-    """`_lm_solve` run once as is (the lazy handles of its kernels), then
-    captured on a side stream over static copies of `args`, as
-    `torch.cuda.graph` does but without its synchronize (the capture reads
-    nothing back) and in thread-local mode (another thread's CUDA calls
-    do not break it). The cuBLAS workspace that the capture allocates for its
-    stream (32 MiB on an H100) is dropped from cuBLAS's table afterwards:
-    the graph keeps using it inside its private pool, which nothing else
-    draws from, and the allocated memory stays what the solve op by op
-    needs. (The current stream's workspace is made again at its next
-    cuBLAS call.)"""
-    dev = args[1].device
-    _lm_solve(cam, *args, cfg, scale_factor)
-    stream = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    static = tuple(a.clone(memory_format=torch.contiguous_format) for a in args)
-    side.wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = _lm_solve(cam, *static, cfg, scale_factor)
-        finally:
-            graph.capture_end()
-    stream.wait_stream(side)
-    torch._C._cuda_clearCublasWorkspaces()
-    return _Captured(static, graph, out)
 
 
 @spanned
@@ -150,24 +112,16 @@ def pose_optimize(
     """Motion-only BA; obs_ur < 0 marks mono observations. Between rounds
     every valid point is re-tested against the chi2 bar.
 
-    On a card, outside a capture, the first call of a `_graph_key`
-    captures the solve (span `pose_optimize.capture`); every call copies
-    its inputs into the graph's, replays it and returns copies of its
-    outputs (span `pose_optimize.replay`). Elsewhere the solve runs
+    On a card, outside a capture, the solve is a CUDA graph
+    (`utils/cuda_graph.replay`, spans `pose_optimize.capture` /
+    `pose_optimize.replay`): each call copies its inputs into the graph's,
+    replays it and returns copies of its outputs. Elsewhere the solve runs
     eagerly, op by op."""
     args = (Tcw0, pw, obs_uv, obs_ur, level, valid)
     if pw.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
         return _lm_solve(cam, *args, cfg, scale_factor)
-    key = _graph_key(cam, args, cfg, scale_factor)
-    solve = _GRAPHS.get(key)
-    if solve is None:
-        with span("pose_optimize.capture"):
-            solve = _GRAPHS[key] = _capture(cam, args, cfg, scale_factor)
-    with span("pose_optimize.replay"):
-        for buf, a in zip(solve.inputs, args):
-            buf.copy_(a)
-        solve.graph.replay()
-        return PoseOptResult(*(t.clone() for t in solve.out))
+    return replay(_GRAPHS, _graph_key(cam, args, cfg, scale_factor), "pose_optimize",
+                  lambda *a: _lm_solve(cam, *a, cfg, scale_factor), args)
 
 
 def _lm_solve(cam, Tcw0, pw, obs_uv, obs_ur, level, valid, cfg, scale_factor):

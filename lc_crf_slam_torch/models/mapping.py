@@ -12,6 +12,14 @@ fusion re-points references with one gather instead of pointer surgery.
 Local BA runs the port's one Schur assembly (ops/schur.py), which sums
 every observation as the reference's TPU-tiled grid assembly, the one
 the reference's local BA takes, does.
+
+Nothing of a step waits on the device, so on a card the whole step
+(~10k small kernels, the segment sum's look-back launches included: their
+plans and zeroed scratch are made inside the step) is one CUDA graph,
+captured once for each shape and set of settings it bakes in and replayed
+at every keyframe: the same kernels in the same order, one launch from
+the host instead of ~15k aten ops. The graph keeps the map in its own
+buffers and hands them out, so the card holds one map, not three.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from ..geometry.se3 import se3_inverse
 from ..ops.match import hamming_matrix, match_nn, projection_gate, resolve_duplicates
 from ..ops.schur import BAProblem, solve_ba_with_outlier_rounds
 from ..ops.triangulate import epipolar_gate, triangulate_pairs
+from ..utils.cuda_graph import hand_in, replay_state
 from .capacities import (BA_CAMS, BA_POINTS, REFRESH_KFS, REFRESH_POINTS,
                          TRIANG_CAP, TRIANG_NEIGHBORS)
 from .mapstate import MapState, add_points, incidence_matrix, obs_weight
@@ -450,11 +459,59 @@ def refresh_point_stats(cfg: SLAMConfig, cam: Pinhole, m: MapState,
         p_max_dist=scatter_set(m.p_max_dist, tgt, max_d))
 
 
+# the map fields `_mapping_step` never reads: meta placeholders in a
+# capture (which no op on the card takes), passed through
+_UNREAD = frozenset({"kf_time", "kf_angle", "kf_emb"})
+_UNREAD_AT = frozenset(i for i, name in enumerate(MapState._fields) if name in _UNREAD)
+
+# captured mapping steps by `_graph_key` (and the float settings,
+# `utils/cuda_graph.replay_state`)
+_GRAPHS: dict = {}
+
+
+def _graph_key(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor):
+    """What a captured step bakes in: the camera, the settings
+    `_mapping_step` reads (scalars of its kernels and its loop counts),
+    and each map field's and `kf_idx`'s shape, dtype and device."""
+    return (cam, cfg.mapping, cfg.local_ba, cfg.matcher.th_low, cfg.orb.scale_factor,
+            cfg.orb.n_levels, cfg.crf.enabled, cfg.crf.dynamic_threshold,
+            tuple((tuple(t.shape), t.dtype, t.device) for t in (*m, kf_idx)))
+
+
 def mapping_step(cfg: SLAMConfig, cam: Pinhole, m: MapState,
                  kf_idx: torch.Tensor) -> MapState:
     """LocalMapping::Run for one keyframe: triangulate -> fuse (the
     keyframe, then its top covisible neighbours) -> point maintenance ->
-    local BA -> cull points -> cull keyframes."""
+    local BA -> cull points -> cull keyframes.
+
+    On a card, outside a capture, the step is a CUDA graph that updates
+    the map it reads in place (`utils/cuda_graph.replay_state`, spans
+    `mapping.capture` / `mapping.replay`): each call copies in the fields
+    it reads that changed since the last call, replays, and returns the
+    graph's map beside the caller's own fields of `_UNREAD`; a map an
+    earlier call returned keeps its values. Elsewhere it runs eagerly, op
+    by op."""
+    if kf_idx.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return _mapping_step(cfg, cam, m, kf_idx)
+    return replay_state(_GRAPHS, _graph_key(cfg, cam, m, kf_idx), "mapping",
+                        lambda *t: _mapping_step(cfg, cam, MapState(*t[:-1]), t[-1]),
+                        (*m, kf_idx), unread=_UNREAD_AT)
+
+
+def adopt(cfg: SLAMConfig, cam: Pinhole, m: MapState, kf_idx: torch.Tensor) -> MapState:
+    """A map made outside `mapping_step` (a new session's), moved into the
+    buffers of its captured step on a card (`utils/cuda_graph.hand_in`),
+    so the card does not hold it beside the graph's stale one until the
+    next keyframe; `m` itself where no step of its key was captured."""
+    if kf_idx.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+        return m
+    got = hand_in(_GRAPHS, _graph_key(cfg, cam, m, kf_idx), "mapping", (*m, kf_idx))
+    return m if got is None else got
+
+
+def _mapping_step(cfg: SLAMConfig, cam: Pinhole, m: MapState,
+                  kf_idx: torch.Tensor) -> MapState:
+    """`mapping_step`, op by op."""
     m = create_new_points(cfg, cam, m, kf_idx)
     m = fuse_duplicates(cfg, cam, m, kf_idx)
     n_rev = cfg.mapping.fuse_reverse_neighbors

@@ -91,7 +91,7 @@ from .frame import Frame, build_frame, build_frames, frame_from_observations
 from .initializer import SAMPLE as MONO_SAMPLE, initialize_mono
 from .loopclosing import (correct_loop, correct_loop_sim3, detect_loop, global_ba,
                           relocalize, search_and_fuse, verify_loop)
-from .mapping import mapping_step
+from .mapping import adopt as adopt_map, mapping_step
 from .mapstate import MapState, add_keyframe, add_points, empty_map
 from .tracking import (
     SECTIONS as TRACK_SECTIONS,
@@ -130,6 +130,9 @@ PER_FRAME_SPANS = {
     "spawn_flow_dyn": _ENTRIES,
     "insert_kf": _ENTRIES,
     "mapping": _ENTRIES,
+    # on a card: the mapping step's CUDA graph, captured once a key and replayed
+    "mapping.capture": {"mapping"},
+    "mapping.replay": {"mapping"},
     "loop": _ENTRIES,                   # _try_close_loop
     "detect_loop": {"loop"},
     "verify_loop": {"loop"},
@@ -514,6 +517,8 @@ class SLAMSystem:
         if not self.initialized:
             with self.timer.stage("initialize_map"):
                 self.map, self.ts = initialize_map(cfg, cam, self.map, frame, t_dev)
+                if self.enable_mapping:
+                    self.map = adopt_map(cfg, cam, self.map, self.ts.ref_kf)
             self.initialized = True
             info_host = {"event": "init"}
         else:

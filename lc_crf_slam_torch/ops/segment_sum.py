@@ -30,13 +30,35 @@ OWN = 32             # owned runs: the positions whose runs a block owns (kOwn)
 SMALL_EDGES = 4096   # up to this many edges blocks own whole runs (no look-back)
 CARRY_WORDS = 2 * MAX_COLUMNS   # tagged 64-bit words of one tile's carry
 
-# kernel launches since the last reset (plain-version calls do not count)
-launches = 0
+# the devices the kernel has been launched on (each keeps its launch count)
+_devices: set = set()
+
+
+def _launch_counts(reset: bool) -> int:
+    """The kernel launches that ran on the card since the last reset, summed
+    over the devices it ran on (0 where it never ran)."""
+    if not _devices:
+        return 0
+    fn = _lib()["launches"]
+    total = 0
+    for device in sorted(_devices):
+        count = ctypes.c_ulonglong(0)
+        err = fn(device, ctypes.byref(count), int(reset))
+        if err != 0:
+            raise RuntimeError(f"segment_sum launch count failed: cudaError {err}")
+        total += count.value
+    return total
+
+
+def launches() -> int:
+    """Kernel launches since the last `reset_launches()`, counted on the
+    card by the kernel itself, so a launch replayed from a CUDA graph counts
+    (plain-version calls do not). Waits for the devices' work so far."""
+    return _launch_counts(reset=False)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    _launch_counts(reset=True)
 
 
 class _Plan(ctypes.Structure):
@@ -171,6 +193,10 @@ def _lib():
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
+    fn = lib.segment_sum_launches
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    fns["launches"] = fn
     return fns
 
 
@@ -179,7 +205,6 @@ def segment_sum_cuda(vals: torch.Tensor, plan: KernelPlan) -> torch.Tensor:
     float32 or float64 CUDA tensor, k <= 64, and the kernel's plan of its
     targets (every target in [0, n)) -> (n, k). One launch; the output is
     allocated uninitialised and the kernel writes all of it."""
-    global launches
     if not vals.is_cuda:
         raise ValueError("segment_sum_cuda needs a CUDA tensor")
     if vals.dtype not in (torch.float32, torch.float64) or vals.dim() != 2 \
@@ -206,7 +231,7 @@ def segment_sum_cuda(vals: torch.Tensor, plan: KernelPlan) -> torch.Tensor:
     err = fn(ctypes.byref(plan.struct()), vals.data_ptr(), out.data_ptr(), k, stream_ptr)
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
-    launches += 1
+    _devices.add(vals.device.index)
     return out
 
 

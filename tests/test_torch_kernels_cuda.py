@@ -160,11 +160,11 @@ def test_segment_sum_kernel_equals_plain(cuda, case):
     n, idx, vals = make_case(case)
     ref = ss.segment_sum_plain(n, idx, vals)
     plan = ss.segment_plan(idx.to(cuda), n)
-    before = ss.launches
+    before = ss.launches()
     out = ss.segment_sum(vals.to(cuda), ss.segment_plan(idx.to(cuda), n))
     again = ss.segment_sum(vals.to(cuda), plan)
     torch.cuda.synchronize()
-    assert ss.launches == before + (2 if idx.numel() else 0)
+    assert ss.launches() == before + (2 if idx.numel() else 0)
     assert _same_as_plain(out, ref) and _same_as_plain(again, ref)
 
 
@@ -213,7 +213,7 @@ def test_segment_sum_kernel_at_the_paths_shapes(cuda, name):
     side = torch.cuda.Stream()
     for call in range(3):
         vals = vals[torch.from_numpy(rng.permutation(len(vals)))] if call else vals
-        before = ss.launches
+        before = ss.launches()
         if call == 2:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -222,8 +222,36 @@ def test_segment_sum_kernel_at_the_paths_shapes(cuda, name):
         else:
             out = ss.segment_sum(vals.to(cuda), plan)
         torch.cuda.synchronize()
-        assert ss.launches == before + 1
+        assert ss.launches() == before + 1
         assert _same_as_plain(out, ss.segment_sum_plain(n, idx, vals)), call
+
+
+@pytest.mark.cuda
+def test_segment_sum_replayed_from_a_graph(cuda):
+    """A sum on the look-back path whose plan is made inside a CUDA graph's
+    capture, as local BA's are in the mapping step's graph: every replay,
+    over new values, gives `index_add_`'s bits (its epochs restart on
+    scratch the graph zeroes), and counts one launch on the card; the
+    capture counts none."""
+    from lc_crf_slam_torch.ops import segment_sum as ss
+
+    rng = np.random.default_rng(19)
+    n, idx, vals = _path_shape("local_Hcc", rng)
+    assert idx.numel() > ss.SMALL_EDGES
+    i, v = idx.to(cuda), vals.to(cuda)
+    ss.segment_sum(v, ss.segment_plan(i, n))
+    before = ss.launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ss.segment_sum(v, ss.segment_plan(i, n))
+    assert ss.launches() == before
+    for replay in range(3):
+        vals = vals[torch.from_numpy(rng.permutation(len(vals)))]
+        v.copy_(vals.to(cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_as_plain(out, ss.segment_sum_plain(n, idx, vals)), replay
+    assert ss.launches() == before + 3
 
 
 @pytest.mark.cuda

@@ -177,6 +177,18 @@ def test_graph_spans_under_pose_optimize_and_none_on_the_cpu(run):
     assert not graph_spans & set(timer.samples)
 
 
+def test_mapping_graph_spans_under_mapping_and_none_on_the_cpu(run):
+    """On a card each `mapping_step` call replays the step's CUDA graph
+    (`mapping.replay`), captured at a key's first call (`mapping.capture`:
+    tests/test_torch_mapping_graph.py); on the CPU the step runs op by op
+    and opens neither."""
+    graph_spans = {"mapping.capture", "mapping.replay"}
+    assert all(PER_FRAME_SPANS[name] == {"mapping"} for name in graph_spans)
+    timer = run["slam"].timer
+    assert timer.count("mapping") == run["slam"].n_mapping_steps >= 1
+    assert not graph_spans & set(timer.samples)
+
+
 def test_track_step_outside_a_system_records_nothing(run):
     slam = run["slam"]
     before = _counts(slam.timer)
@@ -260,7 +272,8 @@ def test_span_readers():
                       if k not in ("spawn_flow_dyn", "flow_evidence", "crf_step")}, 10)
     assert _reader("crf_ms")(static) is None
     bare = _Record({"track": (10, 9.0), "insert_kf": (2, 0.5)}, 10)
-    for name in ("pose_opt_ms", "crf_ms", "loop_ms", "readback_ms", "pose_graph.replay_share"):
+    for name in ("pose_opt_ms", "crf_ms", "loop_ms", "readback_ms", "pose_graph.replay_share",
+                 "mapping_graph.replay_share"):
         assert _reader(name)(bare) is None
     # on a card the graph's spans run inside `pose_optimize`'s: not counted twice
     graphed = _Record({**spans, "pose_optimize.replay": (40, 0.02)}, 10)
